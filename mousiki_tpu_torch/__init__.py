@@ -1,0 +1,24 @@
+"""mousiki_tpu_torch — the PyTorch/CUDA port of mousiki_tpu's CELT stream
+decoder, for one NVIDIA H100.
+
+The host half (the native C++ symbol stage and the numpy helpers) is
+imported from `mousiki_tpu` unchanged; the device half is rewritten here
+as PyTorch ops on tensors, with the de-emphasis IIR as a hand-written
+CUDA kernel (`ops/deemphasis.py`, `csrc/deemphasis.cu`). The JAX package
+stays the reference every module is tested against.
+
+Importing this package loads nothing heavy; `torch` loads with the first
+submodule that needs it, and no module here imports `jax`.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["CeltStreamPipeline"]
+
+
+def __getattr__(name):
+    if name == "CeltStreamPipeline":
+        from .pipeline import CeltStreamPipeline
+        return CeltStreamPipeline
+    raise AttributeError(
+        f"module 'mousiki_tpu_torch' has no attribute {name!r}")

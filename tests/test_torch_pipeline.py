@@ -1,0 +1,138 @@
+"""The port's CeltStreamPipeline (plan mode) end to end on the CPU:
+against the committed golden PCM, against the JAX plan pipeline under
+packet loss, and continuing a JAX pipeline's decode mid-stream.
+
+Bars: 1e-5 to the golden PCM (the JAX pipeline reaches 5.1e-7 there);
+against the JAX pipeline 5e-3 on lost and just-recovered frames and 2e-4
+elsewhere, the bars of test_pipeline.py's packet-loss test.
+"""
+
+
+import numpy as np
+import pytest
+import torch
+
+from golden_streams import frame_batch, golden_pcm, load_stereo_celt
+from mousiki_tpu.ops import plc_jax, synthesis_jax
+from mousiki_tpu.pipeline import CeltStreamPipeline as JaxPipeline
+from mousiki_tpu_torch import convert
+from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
+                                        set_plan_profile)
+
+GOLDEN_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def serving():
+    set_plan_profile(*SERVING_PROFILE)
+    try:
+        yield load_stereo_celt()
+    finally:
+        set_plan_profile()
+
+
+def _loss_pattern(S, F, seed):
+    rng = np.random.default_rng(seed)
+    lost = rng.random((S, F)) < 0.12
+    lost[:, 0] = False                      # prime with a real frame
+    lost[1, 5:7] = True                     # a 2-frame burst
+    return lost
+
+
+def _tol(lost, s, f):
+    return 5e-3 if (lost[s, f] or (f and lost[s, f - 1])) else 2e-4
+
+
+def test_pipeline_matches_golden_pcm(serving):
+    S = 3
+    pipe = CeltStreamPipeline(S, channels=2, use_plan=True, device="cpu")
+    for f in range(12):
+        pcm = pipe.step(frame_batch(serving, S, f), 960)
+        assert pcm.shape == (S, 960, 2) and pcm.dtype == torch.float32
+        err = np.abs(pcm.numpy() - golden_pcm(serving, S, f)).max()
+        assert err <= GOLDEN_TOL, (f, err)
+
+
+def test_decode_stream_matches_step(serving):
+    S, F = 3, 4
+    stepped = CeltStreamPipeline(S, device="cpu")
+    want = [stepped.step(frame_batch(serving, S, f)) for f in range(F)]
+    streamed = CeltStreamPipeline(S, device="cpu")
+    got = list(streamed.decode_stream(frame_batch(serving, S, f)
+                                      for f in range(F)))
+    assert len(got) == F
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pipeline_with_loss_matches_jax(serving):
+    S, F = 4, 8
+    lost = _loss_pattern(S, F, seed=5)
+    port = CeltStreamPipeline(S, device="cpu")
+    ref = JaxPipeline(S, channels=2, use_plan=True)
+    for f in range(F):
+        batch = frame_batch(serving, S, f, lost[:, f])
+        got = port.step(batch).numpy()
+        want = np.asarray(ref.step(batch, 960))
+        for s in range(S):
+            err = np.abs(got[s] - want[s]).max()
+            assert err < _tol(lost, s, f), (f, s, err, bool(lost[s, f]))
+    assert (convert.plc_state_to_numpy(port.plc_state).loss_count
+            == np.asarray(ref.plc_state.loss_count)).all()
+
+
+def test_handover_from_jax_mid_stream(serving):
+    """Run the JAX pipeline for 4 frames, carry its device state into the
+    port, then continue both."""
+    S, F, K = 4, 8, 4
+    lost = _loss_pattern(S, F, seed=9)
+    lost[2, K - 1] = True                   # a loss in flight at handover
+    ref = JaxPipeline(S, channels=2, use_plan=True)
+    port = CeltStreamPipeline(S, device="cpu")
+    for f in range(K):
+        batch = frame_batch(serving, S, f, lost[:, f])
+        ref.step(batch, 960)
+        # the port's native symbol stage decodes the same packets, so its
+        # host-side state (energies, range coder seed) follows along
+        port._native.decode_plan_arenas(batch, 960)
+    port.state = convert.stream_state_from_numpy(
+        synthesis_jax.StreamState(*(np.asarray(v) for v in ref.state)),
+        "cpu")
+    port.plc_state = convert.plc_state_from_numpy(
+        plc_jax.PlcState(*(np.asarray(v) for v in ref.plc_state)), "cpu")
+    for f in range(K, F):
+        batch = frame_batch(serving, S, f, lost[:, f])
+        got = port.step(batch).numpy()
+        want = np.asarray(ref.step(batch, 960))
+        for s in range(S):
+            err = np.abs(got[s] - want[s]).max()
+            assert err < _tol(lost, s, f), (f, s, err, bool(lost[s, f]))
+
+
+def test_short_frames_match_jax():
+    """2.5 ms frames (LM 0, which keeps the one-frame-delayed postfilter
+    state), freshly encoded by libopus, one stream losing a packet."""
+    from mousiki_tpu.bitstream.packet import parse_packet
+    from mousiki_tpu.testing import oracle
+    if not oracle.available():
+        pytest.skip("libopus oracle unavailable")
+    S, F, frame = 2, 6, 120
+    enc = oracle.RefEncoder(48000, 2, oracle.APP_RESTRICTED_LOWDELAY)
+    enc.ctl_set(oracle.SET_BITRATE, 96000)
+    pcm16 = oracle.float_to_i16(
+        oracle.make_test_signal(frame * (F + 2), 2, seed=4))
+    pays = [parse_packet(enc.encode(
+        pcm16[f * frame:(f + 1) * frame].reshape(-1), frame)).frames[0]
+        for f in range(F)]
+    lost = np.zeros((S, F), bool)
+    lost[1, 3] = True
+    port = CeltStreamPipeline(S, device="cpu")
+    ref = JaxPipeline(S, channels=2, use_plan=True)
+    for f in range(F):
+        batch = [None if lost[s, f] else pays[f] for s in range(S)]
+        got = port.step(batch, frame).numpy()
+        want = np.asarray(ref.step(batch, frame))
+        assert got.shape == (S, frame, 2)
+        for s in range(S):
+            err = np.abs(got[s] - want[s]).max()
+            assert err < _tol(lost, s, f), (f, s, err)
