@@ -4,16 +4,26 @@
 
 Drives mousiki_tpu_torch's plan-mode CELT stream decoder (48 kHz stereo,
 20 ms frames) end to end on the card, with the JAX package nowhere in the
-process:
+process (it fails first thing if any module of mousiki_tpu is loaded):
 
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
-  2. build: compile the de-emphasis kernel (csrc/deemphasis.cu) with nvcc;
-  3. kernel vs plain: the kernel against deemphasis_reference on the card
-     at the main path's shapes, both timed with CUDA events;
+  2. build, both at once: the native host symbol stage
+     (csrc/celt_host.cpp, g++) and the fused de-emphasis kernel
+     (csrc/deemphasis.cu, nvcc), each with its build time;
+  3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
+     the card at (S, C, N) = (256, 2, 960), the main path's shape, and
+     (256, 2, 120), (7, 1, 960), (3, 2, 240); bar 1e-4 * max|pcm|. For
+     each: the kernel's device time (torch.profiler; input in L2 as on the
+     main path, and L2 evicted by a 128 MB read before each launch), its
+     HBM bound and bound share, the plain
+     version's device time, both per-call CUDA-event times, and a copy
+     floor (one out.copy_(x.transpose(1, 2)) moving the same bytes: a
+     yardstick that does not compute the same function);
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
-     launched by the path itself (launch counts reset just before);
+     launched once a step by the path itself (launch counts reset just
+     before);
   5. loss: 256 streams with ~10% seeded packet loss, the first 8 streams
      against the port run on the CPU (5e-3 on lost and just-recovered
      frames, 2e-4 elsewhere);
@@ -36,12 +46,15 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
 
 from golden_streams import frame_batch, golden_pcm, load_stereo_celt
 from mousiki_tpu_torch._device import require_cuda
+from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import deemphasis as deemph
 from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
                                         set_plan_profile)
@@ -49,6 +62,10 @@ from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
 FRAME = 960
 GOLDEN_TOL = 2e-4
 KERNEL_REL_TOL = 1e-4
+# NVIDIA H100 SXM data sheet peaks (dense, no sparsity, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+KERNEL_SHAPES = ((256, 2, 960), (256, 2, 120), (7, 1, 960), (3, 2, 240))
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -66,6 +83,13 @@ def check(cond: bool, msg: str) -> None:
 
 # ---------------------------------------------------------------- phases
 
+def check_no_jax_package() -> None:
+    """The port runs alone: no module of the JAX package is loaded."""
+    loaded = sorted(m for m in sys.modules
+                    if m == "mousiki_tpu" or m.startswith("mousiki_tpu."))
+    check(not loaded, f"modules of the JAX package are loaded: {loaded}")
+
+
 def phase_device():
     dev = require_cuda()
     card = subprocess.run(
@@ -75,15 +99,24 @@ def phase_device():
     print(card, flush=True)
     say("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-        card=repr(card))
+        card=repr(card), jax_package_modules=0, jax="jax" in sys.modules)
     return dev, card
 
 
-def phase_build():
+def _timed(fn):
     t0 = time.perf_counter()
-    deemph.build_kernel()
-    say("build", kernel="deemphasis",
-        seconds=round(time.perf_counter() - t0, 3))
+    fn()
+    return round(time.perf_counter() - t0, 3)
+
+
+def phase_build():
+    """g++ for the host stage and nvcc for the kernel, started together."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host = pool.submit(_timed, _build.build_host)
+        kernel = pool.submit(_timed, deemph.build_kernel)
+        say("build", host_library="csrc/celt_host.cpp",
+            host_seconds=host.result(), kernel="csrc/deemphasis.cu",
+            kernel_seconds=kernel.result())
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -99,46 +132,89 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kernel_device_ms(x, mem, reps: int = 20) -> float:
-    """Mean duration of the kernel itself on the device (profiler), apart
-    from the host time between launches that CUDA events also count."""
+def _device_ms(fn, reps: int = 20, match: str | None = None,
+               between=None) -> float:
+    """Mean device time a call of `fn`: the summed durations of the CUDA
+    kernels it runs (those whose name holds `match`, if given), under
+    torch.profiler; apart from the host time between launches that CUDA
+    events also count. `between` runs before each call, unmeasured when
+    `match` leaves its kernels out. The profiler now and then drops a
+    kernel event, so the time is the mean kernel duration times the
+    kernels a call runs."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            deemph.deemphasis(x, mem)
+            if between is not None:
+                between()
+            fn()
         torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
     us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if "deemphasis_kernel" in ev.name]
-    check(len(us) == reps, f"profiler saw {len(us)} of {reps} kernels")
-    return sum(us) / len(us) / 1e3
+          if ev.device_type == cuda and (match is None or match in ev.name)]
+    check(len(us) >= reps // 2,
+          f"profiler saw {len(us)} kernels in {reps} calls")
+    per_call = max(1, round(len(us) / reps))
+    return sum(us) / len(us) * per_call / 1e3
+
+
+def bound_ms(S: int, C: int, N: int) -> tuple[float, str, int]:
+    """The least time of the fused tail on the card: bytes (each input
+    read once, each output written once) over HBM bandwidth, against
+    3 flops a sample (fma + scale) over the fp32 peak."""
+    nbytes = 4 * (S * C * N + S * C) + 4 * (S * N * C + S * C)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * S * C * N / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
 
 
 def phase_kernel(dev):
     rng = np.random.default_rng(7)
+    # 128 MB read between launches evicts the 50 MB L2 with clean lines
+    # (a write would leave dirty lines for the kernel to write back)
+    flush = torch.zeros(32 << 20, dtype=torch.float32, device=dev)
     table = {}
-    for S, C, N in ((256, 2, 960), (256, 2, 120), (7, 1, 960)):
+    for S, C, N in KERNEL_SHAPES:
         x = torch.as_tensor((rng.standard_normal((S, C, N)) * 1000)
                             .astype(np.float32), device=dev)
         mem = torch.as_tensor((rng.standard_normal((S, C)) * 100)
                               .astype(np.float32), device=dev)
-        y, m = deemph.deemphasis(x, mem)
+        pcm, m = deemph.deemphasis_pcm(x, mem)
         torch.cuda.synchronize()
-        want_y, want_m = deemph.deemphasis_reference(x, mem)
-        scale = want_y.abs().max().item()
-        err = max((y - want_y).abs().max().item(),
-                  (m - want_m).abs().max().item())
-        check(bool(torch.isfinite(y).all()),
+        want_pcm, want_m = deemph.deemphasis_pcm_reference(x, mem)
+        check(pcm.shape == (S, N, C) and pcm.is_contiguous(),
+              f"kernel output {tuple(pcm.shape)} at {(S, C, N)}")
+        check(bool(torch.isfinite(pcm).all()),
               f"kernel output not finite at {(S, C, N)}")
-        check(err <= KERNEL_REL_TOL * scale,
-              f"kernel vs plain at rows={S * C} N={N}: {err} > "
+        scale = want_pcm.abs().max().item()
+        err = (pcm - want_pcm).abs().max().item()
+        # new_mem is unscaled: held to the same bar in its own units
+        err_mem = (m - want_m).abs().max().item() / 32768.0
+        check(max(err, err_mem) <= KERNEL_REL_TOL * scale,
+              f"kernel vs plain at {(S, C, N)}: {err} / {err_mem} > "
               f"{KERNEL_REL_TOL} * {scale}")
-        ms = _cuda_ms(lambda: deemph.deemphasis(x, mem), 200)
-        plain_ms = _cuda_ms(lambda: deemph.deemphasis_reference(x, mem), 50)
-        say("kernel", rows=S * C, n=N, max_abs_err=err,
-            bar=KERNEL_REL_TOL * scale, ms=ms, plain_ms=plain_ms,
-            kernel_device_ms=_kernel_device_ms(x, mem))
-        table[(S * C, N)] = (err, ms, plain_ms)
+        out = torch.empty_like(pcm)
+        run = partial(deemph.deemphasis_pcm, x, mem)
+        plain = partial(deemph.deemphasis_pcm_reference, x, mem)
+        dev_ms = _device_ms(run, match="deemphasis_pcm_kernel")
+        cold_ms = _device_ms(run, match="deemphasis_pcm_kernel",
+                             between=flush.sum)
+        plain_ms = _device_ms(plain)
+        copy_ms = _device_ms(lambda: out.copy_(x.transpose(1, 2)))
+        bms, bound_by, nbytes = bound_ms(S, C, N)
+        row = dict(max_abs_err=err, bar=KERNEL_REL_TOL * scale,
+                   kernel_device_ms=dev_ms,
+                   kernel_device_ms_l2_flushed=cold_ms, bound_ms=bms,
+                   bound_by=bound_by, bytes=nbytes, bound_share=bms / dev_ms,
+                   bound_share_l2_flushed=bms / cold_ms,
+                   plain_device_ms=plain_ms, copy_floor_ms=copy_ms,
+                   call_ms=_cuda_ms(run, 200),
+                   plain_call_ms=_cuda_ms(plain, 50))
+        say("kernel", S=S, C=C, N=N, **row)
+        table[(S, C, N)] = row
     return table
 
 
@@ -161,8 +237,8 @@ def phase_main_path(dev, streams):
               f"{GOLDEN_TOL}, worst {err.max()}")
         worst = max(worst, float(err.max()))
     n = deemph.deemphasis_launches
-    check(all(b - a >= 1 for a, b in zip([0] + launches, launches)),
-          f"deemphasis launches per step {launches}")
+    check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
+          f"deemphasis launches per step {launches}: one a step expected")
     say("main_path", streams=S, frames=F, worst_abs_err_vs_golden=worst,
         bar=GOLDEN_TOL, deemphasis_launches=n,
         launches_after_each_step=launches)
@@ -287,6 +363,7 @@ def main() -> int:
     ap.add_argument("--out", help="directory for the measurements (JSON) "
                     "and profiler tables")
     OUT_DIR = ap.parse_args().out
+    check_no_jax_package()
     dev, card = phase_device()
     if OUT_DIR is not None:
         os.makedirs(OUT_DIR, exist_ok=True)
@@ -297,13 +374,16 @@ def main() -> int:
     n_launch, _ = phase_main_path(dev, streams)
     phase_loss(dev, streams)
     phase_timing(dev, streams)
-    err, ms, plain_ms = table[(512, 960)]
+    row = table[(256, 2, FRAME)]
     kernels = {"kernels": [{
-        "name": "deemphasis", "route": "cuda",
+        "name": "deemphasis_pcm", "route": "cuda",
         "source": "mousiki_tpu_torch/csrc/deemphasis.cu",
         "replaces": "mousiki_tpu/ops/pallas_kernels.py:23",
-        "launches": n_launch, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}
+        "launches": n_launch, "max_abs_err": row["max_abs_err"],
+        "ms": row["kernel_device_ms"], "plain_ms": row["plain_device_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        # no PyTorch call computes a first-order IIR
+        "library_ms": None}]}
     RESULTS["kernels"] = kernels
     if OUT_DIR is not None:
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

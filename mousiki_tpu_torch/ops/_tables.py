@@ -1,8 +1,8 @@
 """Numpy constants of the device half, copied from the JAX modules.
 
-`band_exec_jax`, `synthesis_jax` and `encode_front_jax` import `jax` at
-the top, so the port cannot import their numpy helpers; these are exact
-copies (tests/test_torch_tables.py checks each against its original):
+The port imports nothing of the JAX package, so these are exact copies
+of its numpy helpers (tests/test_torch_tables.py checks each against its
+original):
 
   * `u_table`, `lcg_jump`            <- band_exec_jax._u_table, _lcg_jump
   * `combo_mats`, `plan_combo_mats_np`
@@ -20,9 +20,8 @@ from functools import lru_cache
 
 import numpy as np
 
-from mousiki_tpu.celt.modes import opus_custom_mode
-from mousiki_tpu.celt.plan import _post_transforms, _pre_transforms
-from mousiki_tpu.celt.plan_pack import combos_for_m
+from ..celt.modes import MODE
+from ..celt.plan import _post_transforms, _pre_transforms, combos_for_m
 
 SPREAD_FACTOR = np.array([44, 15, 10, 5], np.float32)  # [unused, light, normal, aggr]
 
@@ -108,9 +107,8 @@ def combo_mats(n_band: int, M: int):
 @lru_cache(maxsize=None)
 def plan_combo_mats_np(frame: int):
     """(21, NC, NBMAX, NBMAX) f32 pre/post combo stacks, identity-padded."""
-    mode = opus_custom_mode(48000, 960)
-    eb = [int(v) for v in mode.ebands]
-    M = frame // mode.short_mdct_size
+    eb = [int(v) for v in MODE.ebands]
+    M = frame // MODE.short_mdct_size
     nbmax = 22 * M
     nc = len(combos_for_m(M))
     pre_all = np.zeros((21, nc, nbmax, nbmax), np.float32)

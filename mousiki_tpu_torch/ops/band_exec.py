@@ -28,11 +28,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from mousiki_tpu.celt import host_native
-from mousiki_tpu.celt.modes import opus_custom_mode
-from mousiki_tpu.celt.plan_pack import TIERS
-
 from .. import _device
+from ..celt import host_native
+from ..celt.modes import MODE
+from ..celt.plan import TIERS
 from ._tables import (LCG_MAX, SPREAD_FACTOR, U_K, U_N, lcg_jump,
                       plan_combo_mats_np, u_table)
 
@@ -310,9 +309,8 @@ def _normalize_plan(p: dict) -> dict:
 @lru_cache(maxsize=None)
 def _p4_consts(lm: int, start: int, end: int, device: torch.device):
     """Static index maps of the anti-collapse pass."""
-    mode = opus_custom_mode(48000, 960)
-    eb = [int(v) for v in mode.ebands]
-    nb = mode.num_ebands
+    eb = [int(v) for v in MODE.ebands]
+    nb = MODE.num_ebands
     M = 1 << lm
     nbins = M * eb[end]
     band_of = np.full(nbins, -1, np.int64)
@@ -346,9 +344,8 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
     """
     p = _normalize_plan(p)
     dev = p["direct"].device
-    mode = opus_custom_mode(48000, 960)
-    eb = [int(v) for v in mode.ebands]
-    nb = mode.num_ebands
+    eb = [int(v) for v in MODE.ebands]
+    nb = MODE.num_ebands
     M = 1 << lm
     norm_offset = M * eb[start]
     norm_len = M * eb[nb - 1] - norm_offset
@@ -592,7 +589,8 @@ def split_backing(backing, *, channels: int, frame: int, n_streams: int):
 
 def unpack_plan_arenas(a32, a16, a8, *, channels: int, frame: int):
     """Reconstruct the LOGICAL plan-plane dict from the three packed arenas
-    (wire format v4; the numpy twin is host_native.wire_to_logical).
+    (wire format v4; the JAX package's numpy twin is
+    mousiki_tpu/celt/host_native.wire_to_logical).
 
     f32 planes are same-width bitcasts of the int32 arena; u32 values are
     returned in int64. Sequential 12-byte PVQ leaf records are scattered

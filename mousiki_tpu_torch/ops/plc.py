@@ -17,12 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from mousiki_tpu.celt.decoder import (CELT_LPC_ORDER, DECODE_BUFFER_SIZE,
-                                      PLC_PITCH_LAG_MAX, PLC_PITCH_LAG_MIN)
-from mousiki_tpu.ops.mdct import mdct_matrix
-
 from .. import _device
+from ..celt.modes import (CELT_LPC_ORDER, DECODE_BUFFER_SIZE,
+                          PLC_PITCH_LAG_MAX, PLC_PITCH_LAG_MIN)
 from ._tables import COMB_GAINS, fold_operator
+from .mdct import mdct_matrix
 from .synthesis import COMB_MIN
 
 DBS = DECODE_BUFFER_SIZE

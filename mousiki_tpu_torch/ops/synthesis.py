@@ -2,7 +2,8 @@
 
 Per step, for S streams at once: denormalise (band-energy scale through a
 bin->band gather), long/short IMDCT as float32 matrix products, the TDAC
-overlap combine, the chunked comb postfilter, and de-emphasis (the CUDA
+overlap combine, the chunked comb postfilter, and the de-emphasis tail
+(IIR, 1/32768 scale and (S, C, N) -> (S, N, C) interleave: one CUDA
 kernel of ops/deemphasis.py on the card). Public layouts follow the JAX
 module: state tensors are (S, C, ...), PCM comes out as (S, N, C).
 """
@@ -16,15 +17,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from mousiki_tpu.celt.modes import opus_custom_mode
-from mousiki_tpu.celt.quant_bands import E_MEANS
-from mousiki_tpu.ops.mdct import imdct_matrix
-
 from .. import _device
+from ..celt.modes import DECODE_BUFFER_SIZE, E_MEANS, MODE
 from ._tables import COMB_GAINS, bin_band_map
-from .deemphasis import deemphasis
+from .deemphasis import deemphasis_pcm
+from .mdct import imdct_matrix
 
-DECODE_BUFFER_SIZE = 2048
 OVERLAP = 120
 HALF = OVERLAP // 2
 N960 = 960
@@ -44,8 +42,7 @@ class SynthesisConsts(NamedTuple):
 def make_consts(n: int, device) -> SynthesisConsts:
     """Constants for frame size n (120/240/480/960 = LM 0-3)."""
     dev = _device.as_device(device)
-    mode = opus_custom_mode()
-    M = n // mode.short_mdct_size
+    M = n // MODE.short_mdct_size
     e_means = np.concatenate([E_MEANS[:21], [0.0]]).astype(np.float32)
 
     def f32(a):
@@ -54,8 +51,8 @@ def make_consts(n: int, device) -> SynthesisConsts:
     return SynthesisConsts(
         m_long=f32(imdct_matrix(n)),
         m_short=f32(imdct_matrix(120)),
-        window=f32(mode.window),
-        bin_band=torch.as_tensor(bin_band_map(mode, M).astype(np.int64),
+        window=f32(MODE.window),
+        bin_band=torch.as_tensor(bin_band_map(MODE, M).astype(np.int64),
                                  device=dev),
         e_means=f32(e_means),
         comb_gains=f32(COMB_GAINS),
@@ -133,7 +130,7 @@ def _tdac(n: int, n2: int, device: torch.device):
     """Per output position j: the mirrored index into T = [tail | raw] and
     the two weights of out = c1*T[j] + c2*T[mirror] (overlap_windows),
     as tensors on `device`."""
-    w = np.asarray(opus_custom_mode().window, np.float32)
+    w = np.asarray(MODE.window, np.float32)
     j = np.arange(n)
     r = j % n2
     g = (j // n2) * n2
@@ -237,7 +234,8 @@ def comb_filter_batched(consts, buf, pos, N, t0, t1, g0, g1, tap0, tap1):
 def synthesis_step(consts: SynthesisConsts, state: StreamState,
                    desc: FrameDesc, n: int = N960, lost=None, freq_plc=None):
     """One frame (n = 120/240/480/960 samples, LM 0-3) for all streams;
-    returns (pcm (S, n, C), new state). consts must be make_consts(n).
+    returns (pcm (S, n, C) contiguous, new state). consts must be
+    make_consts(n).
 
     lost/freq_plc: lost streams take the PLC re-entry spectrum (already
     full-scale) instead of their denormalised decoded bands; callers also
@@ -274,8 +272,7 @@ def synthesis_step(consts: SynthesisConsts, state: StreamState,
 
     synth = mem[..., pos:pos + N].contiguous()
     with record_function("synthesis.deemphasis"):
-        pcm, new_preemph = deemphasis(synth, state.preemph)
-    pcm = pcm * (1.0 / 32768.0)
+        pcm, new_preemph = deemphasis_pcm(synth, state.preemph)
 
     # state rotation (celt_decoder.rs:4011): old <- current, current <- new;
     # for LM != 0 old is then overwritten with the new values too, so only
@@ -294,4 +291,4 @@ def synthesis_step(consts: SynthesisConsts, state: StreamState,
         pf_gain_old=old_g,
         pf_tapset_old=old_t,
     )
-    return pcm.transpose(1, 2), new_state
+    return pcm, new_state

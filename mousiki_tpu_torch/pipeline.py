@@ -5,8 +5,9 @@ mousiki_tpu/pipeline.py CeltStreamPipeline(use_plan=True).
              --blocking host-to-device copy--> device step
              (unpack + band plans + PLC + synthesis) --> (S, N, C) PCM
 
-The host half is mousiki_tpu's native C++ symbol decoder, reused as it
-is; it must be available (there is no Python-decoder fallback here).
+The host half is the port's own copy of the native C++ symbol decoder
+(`celt/host_native.py`, built with g++ from `csrc/celt_host.cpp` at first
+use); there is no Python-decoder fallback here.
 """
 
 from __future__ import annotations
@@ -14,10 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mousiki_tpu.celt import host_native
-from mousiki_tpu.celt.modes import opus_custom_mode
-
 from . import _device
+from .celt import host_native
+from .celt.modes import MODE
 from .ops.band_exec import plan_combo_mats, plan_synthesis_step_plc
 from .ops.plc import init_plc_state, make_plc_consts
 from .ops.synthesis import init_state, make_consts
@@ -27,8 +27,9 @@ SERVING_PROFILE = ((144, 40, 6), 2, 8)
 
 
 def set_plan_profile(tiers=None, fills=None, pool=None) -> None:
-    """Set the native host stage's plan capacities, process-wide (every
-    pipeline). No arguments restore the full profile. A stream that
+    """Set the port's native host stage's plan capacities, process-wide
+    (every pipeline of the port; the JAX package's library keeps its
+    own). No arguments restore the full profile. A stream that
     overflows a tier falls back to the exact direct decoder, so the
     profile moves the arena size, not the output."""
     host_native.set_plan_profile(tiers, fills, pool)
@@ -46,9 +47,6 @@ class CeltStreamPipeline:
                  use_plan: bool = True, *, device):
         if not use_plan:
             raise ValueError("only plan mode is ported (use_plan=True)")
-        if not host_native.available():
-            raise RuntimeError("native celt host library unavailable "
-                               "(built from native/celt_host.cpp with g++)")
         self.S = n_streams
         self.channels = channels
         self.use_plan = True
@@ -72,7 +70,7 @@ class CeltStreamPipeline:
             self._mats[frame_size] = plan_combo_mats(self.channels,
                                                      frame_size, dev)
             self._plc_consts[frame_size] = make_plc_consts(
-                frame_size, opus_custom_mode(48000, 960).window, dev)
+                frame_size, MODE.window, dev)
             self._xd_zeros[frame_size] = torch.zeros(
                 (self.S, self.channels, frame_size), dtype=torch.float32,
                 device=dev)

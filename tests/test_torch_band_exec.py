@@ -31,11 +31,15 @@ TIGHT_PROFILE = ((60, 20, 2), 2, 8)
 
 @contextlib.contextmanager
 def _profile(profile):
+    """The profile in both host libraries: the arenas come from the JAX
+    package's, the port unpacks them with its own layout."""
     set_plan_profile(*profile)
+    host_native.set_plan_profile(*profile)
     try:
         yield
     finally:
         set_plan_profile()  # restore the full profile
+        host_native.set_plan_profile()
 
 
 def _arenas(frames):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from golden_streams import frame_batch, golden_pcm, load_stereo_celt
+from mousiki_tpu.celt import host_native as jax_host_native
 from mousiki_tpu.ops import plc_jax, synthesis_jax
 from mousiki_tpu.pipeline import CeltStreamPipeline as JaxPipeline
 from mousiki_tpu_torch import convert
@@ -24,11 +25,15 @@ GOLDEN_TOL = 1e-5
 
 @pytest.fixture(scope="module")
 def serving():
+    """The serving profile in both host libraries (the port's and the JAX
+    package's keep separate profiles); both restored afterwards."""
     set_plan_profile(*SERVING_PROFILE)
+    jax_host_native.set_plan_profile(*SERVING_PROFILE)
     try:
         yield load_stereo_celt()
     finally:
         set_plan_profile()
+        jax_host_native.set_plan_profile()
 
 
 def _loss_pattern(S, F, seed):

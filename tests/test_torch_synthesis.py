@@ -16,7 +16,8 @@ from mousiki_tpu.ops import synthesis_jax
 from mousiki_tpu.ops.pallas_kernels import deemphasis_pallas
 from mousiki_tpu_torch import convert
 from mousiki_tpu_torch.ops import synthesis
-from mousiki_tpu_torch.ops.deemphasis import deemphasis_reference
+from mousiki_tpu_torch.ops.deemphasis import (deemphasis_pcm_reference,
+                                              deemphasis_reference)
 
 PCM_TOL = 2e-5
 MEM_TOL = 1e-5
@@ -90,3 +91,23 @@ def test_deemphasis_reference_matches_jax_and_pallas():
                           np.asarray(pal_mem).reshape(S, C))):
         assert np.abs(got.numpy() - ref).max() < 1e-4 * scale
         assert np.abs(got_mem.numpy() - ref_mem).max() < 1e-4 * scale
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("N", [120, 960])
+def test_deemphasis_pcm_reference_matches_jax_tail(C, N):
+    """The plain version of the fused kernel against what synthesis_jax
+    computes from `synth` on: deemphasis, x 1/32768, (S, C, N) ->
+    (S, N, C). Bar 1e-4 * max|pcm| (new_mem: 1e-4 * max|y|)."""
+    rng = np.random.default_rng(100 + C * N)
+    S = 3
+    x = (rng.standard_normal((S, C, N)) * 1000).astype(np.float32)
+    mem = (rng.standard_normal((S, C)) * 100).astype(np.float32)
+    pcm, new_mem = deemphasis_pcm_reference(torch.as_tensor(x),
+                                            torch.as_tensor(mem))
+    y, m = synthesis_jax.deemphasis(jnp.asarray(x), jnp.asarray(mem))
+    want = np.asarray(y * (1.0 / 32768.0)).transpose(0, 2, 1)
+    assert pcm.shape == want.shape == (S, N, C) and pcm.is_contiguous()
+    assert np.abs(pcm.numpy() - want).max() < 1e-4 * np.abs(want).max()
+    assert np.abs(new_mem.numpy() - np.asarray(m)).max() \
+        < 1e-4 * np.abs(np.asarray(y)).max()

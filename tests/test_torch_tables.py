@@ -1,8 +1,11 @@
-"""mousiki_tpu_torch constants and package hygiene: the numpy tables
-copied out of the JAX modules equal their originals, the port's device
-constants equal the JAX ones, the package never imports jax, and the
-de-emphasis wrapper takes its plain path on CPU tensors."""
+"""mousiki_tpu_torch constants and package hygiene: the tables, mode,
+MDCT bases, plan transforms, arena layouts and native sources copied out
+of the JAX package equal their originals, the port's device constants
+equal the JAX ones, the package imports neither jax nor anything of
+mousiki_tpu, and the de-emphasis wrapper takes its plain path on CPU
+tensors."""
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -12,11 +15,20 @@ import pytest
 import torch
 
 
+from mousiki_tpu.celt import bands as jax_bands
+from mousiki_tpu.celt import decoder as jax_decoder
+from mousiki_tpu.celt import host_native as jax_host_native
+from mousiki_tpu.celt import plan as jax_plan
+from mousiki_tpu.celt import plan_pack as jax_plan_pack
 from mousiki_tpu.celt.modes import opus_custom_mode
+from mousiki_tpu.celt.quant_bands import E_MEANS
 from mousiki_tpu.ops import band_exec_jax, encode_front_jax, plc_jax
+from mousiki_tpu.ops import mdct as jax_mdct
 from mousiki_tpu.ops import synthesis_jax
-from mousiki_tpu_torch.ops import _tables, band_exec, deemphasis, plc
+from mousiki_tpu_torch.celt import host_native, modes, plan
+from mousiki_tpu_torch.ops import _tables, band_exec, deemphasis, mdct, plc
 from mousiki_tpu_torch.ops import synthesis
+from mousiki_tpu_torch.pipeline import SERVING_PROFILE
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,7 +47,7 @@ def test_copied_tables_equal_originals():
                                   synthesis_jax._COMB_GAINS)
     mode = opus_custom_mode()
     for M in (1, 2, 4, 8):
-        np.testing.assert_array_equal(_tables.bin_band_map(mode, M),
+        np.testing.assert_array_equal(_tables.bin_band_map(modes.MODE, M),
                                       synthesis_jax._bin_band_map(mode, M))
     w = np.asarray(mode.window, np.float32)
     for n2 in (120, 240, 480, 960):
@@ -65,17 +77,109 @@ def test_device_constants_equal_jax(n):
         np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
 
 
+def test_mode_copy_equals_original():
+    want = opus_custom_mode(48000, 960)
+    got = modes.MODE
+    for field in ("fs", "overlap", "num_ebands", "short_mdct_size"):
+        assert getattr(got, field) == getattr(want, field), field
+    for field in ("ebands", "window"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert g.dtype == w.dtype, field
+        np.testing.assert_array_equal(g, w, err_msg=field)
+    assert modes.E_MEANS.dtype == E_MEANS.dtype
+    np.testing.assert_array_equal(modes.E_MEANS, E_MEANS)
+    for name in ("DECODE_BUFFER_SIZE", "CELT_LPC_ORDER", "PLC_PITCH_LAG_MAX",
+                 "PLC_PITCH_LAG_MIN"):
+        assert getattr(modes, name) == getattr(jax_decoder, name), name
+
+
+@pytest.mark.parametrize("n2", [120, 240, 480, 960])
+def test_mdct_matrices_equal_originals(n2):
+    np.testing.assert_array_equal(mdct.imdct_matrix(n2),
+                                  jax_mdct.imdct_matrix(n2))
+    np.testing.assert_array_equal(mdct.mdct_matrix(n2),
+                                  jax_mdct.mdct_matrix(n2))
+
+
+def test_plan_transforms_equal_originals():
+    assert plan.TIERS == jax_plan_pack.TIERS
+    assert plan._ORDERY == jax_bands._ORDERY
+    rng = np.random.default_rng(2)
+    eb = modes.EBAND5MS
+    for M in (1, 2, 4, 8):
+        assert plan.combos_for_m(M) == jax_plan_pack.combos_for_m(M)
+        for n_band in sorted({M * (eb[i + 1] - eb[i]) for i in range(21)}
+                             - {1}):
+            for b0, tf in plan.combos_for_m(M):
+                for copy_fn, orig_fn in (
+                        (plan._pre_transforms, jax_plan._pre_transforms),
+                        (plan._post_transforms, jax_plan._post_transforms)):
+                    v = rng.standard_normal(n_band)
+                    got, want = v.copy(), v.copy()
+                    try:
+                        orig_fn(want, n_band, b0, tf)
+                    except Exception as exc:  # rejected combos stay so
+                        with pytest.raises(type(exc)):
+                            copy_fn(got, n_band, b0, tf)
+                        continue
+                    copy_fn(got, n_band, b0, tf)
+                    np.testing.assert_array_equal(got, want)
+    # the combo operators built through the copies
+    for frame in (240, 480):
+        for got, want in zip(_tables.plan_combo_mats_np(frame),
+                             band_exec_jax._plan_combo_mats_np(frame)):
+            np.testing.assert_array_equal(got, want)
+
+
+@contextlib.contextmanager
+def _both_profiles(profile):
+    """Set the plan profile of the port's host library and of the JAX
+    package's, then restore both to the full profile."""
+    host_native.set_plan_profile(*profile)
+    jax_host_native.set_plan_profile(*profile)
+    try:
+        yield
+    finally:
+        host_native.set_plan_profile()
+        jax_host_native.set_plan_profile()
+
+
+@pytest.mark.parametrize("profile", [(None, None, None), SERVING_PROFILE])
+def test_arena_layouts_equal_originals(profile):
+    assert host_native._PLANE_DTYPES == jax_host_native._PLANE_DTYPES
+    assert tuple(host_native._PTR_ORDER) == tuple(jax_host_native._PTR_ORDER)
+    with _both_profiles(profile):
+        assert host_native.get_plan_profile() \
+            == jax_host_native.get_plan_profile()
+        for S, C, frame in ((1, 2, 960), (3, 2, 960), (256, 2, 960),
+                            (5, 1, 120)):
+            assert host_native.plan_arena_layout(S, C, frame) \
+                == jax_host_native.plan_arena_layout(S, C, frame)
+            assert host_native.arena_word_layout(S, C, frame) \
+                == jax_host_native.arena_word_layout(S, C, frame)
+
+
+@pytest.mark.parametrize("name", ["celt_host.cpp", "celt_tables.h"])
+def test_host_sources_equal_originals(name):
+    with open(os.path.join(_ROOT, "native", name), "rb") as fh:
+        want = fh.read()
+    with open(os.path.join(_ROOT, "mousiki_tpu_torch", "csrc", name),
+              "rb") as fh:
+        assert fh.read() == want
+
+
 _BLOCK_JAX = r"""
 import importlib, pkgutil, sys
 
-class _NoJax:
+_BLOCKED = ("jax", "jaxlib", "mousiki_tpu")
+
+class _Blocked:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "jaxlib" \
-                or name.startswith("jaxlib."):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in _BLOCKED:
+            raise ImportError("blocked: " + name)
         return None
 
-sys.meta_path.insert(0, _NoJax())
+sys.meta_path.insert(0, _Blocked())
 import mousiki_tpu_torch
 names = ["mousiki_tpu_torch"]
 for info in pkgutil.walk_packages(mousiki_tpu_torch.__path__,
@@ -84,17 +188,19 @@ for info in pkgutil.walk_packages(mousiki_tpu_torch.__path__,
 # the smoke run and its fixture loader import nothing of JAX either
 for name in names + ["golden_streams", "chip_smoke"]:
     importlib.import_module(name)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+assert not any(m.split(".")[0] in _BLOCKED for m in sys.modules)
 print("imported", len(names))
 """
 
 
 def test_port_imports_without_jax():
+    """The port, golden_streams and chip_smoke import with jax and every
+    module of the JAX package (mousiki_tpu, mousiki_tpu.*) refused."""
     proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 9, proc.stdout
+    assert n >= 13, proc.stdout
 
 
 def test_deemphasis_cpu_takes_plain_path():
@@ -102,35 +208,39 @@ def test_deemphasis_cpu_takes_plain_path():
     x = torch.as_tensor(rng.standard_normal((2, 2, 240)).astype(np.float32))
     mem = torch.as_tensor(rng.standard_normal((2, 2)).astype(np.float32))
     deemphasis.reset_launches()
-    y, m = deemphasis.deemphasis(x, mem)
-    want_y, want_m = deemphasis.deemphasis_reference(x, mem)
+    pcm, m = deemphasis.deemphasis_pcm(x, mem)
+    want_pcm, want_m = deemphasis.deemphasis_pcm_reference(x, mem)
     assert deemphasis.deemphasis_launches == 0
-    assert torch.equal(y, want_y) and torch.equal(m, want_m)
+    assert torch.equal(pcm, want_pcm) and torch.equal(m, want_m)
+    assert pcm.shape == (2, 240, 2) and pcm.is_contiguous()
     with pytest.raises(TypeError):
-        deemphasis.deemphasis(x.double(), mem.double())
+        deemphasis.deemphasis_pcm(x.double(), mem.double())
     with pytest.raises(ValueError):
-        deemphasis.deemphasis(x, mem[:1])
+        deemphasis.deemphasis_pcm(x, mem[:1])
+    with pytest.raises(ValueError):  # three channels
+        deemphasis.deemphasis_pcm(torch.zeros(2, 3, 240), torch.zeros(2, 3))
 
 
 @pytest.mark.cuda
 def test_deemphasis_kernel_matches_plain_on_gpu():
-    """The CUDA kernel against its plain version (needs the card)."""
+    """The fused CUDA kernel against its plain version (needs the card)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the GPU")
     rng = np.random.default_rng(4)
-    for S, N in ((256, 960), (256, 120), (7, 960)):
-        x = torch.as_tensor((rng.standard_normal((S, 2, N)) * 1000)
+    for S, C, N in ((256, 2, 960), (256, 2, 120), (7, 1, 960), (3, 2, 240)):
+        x = torch.as_tensor((rng.standard_normal((S, C, N)) * 1000)
                             .astype(np.float32), device="cuda")
-        mem = torch.as_tensor((rng.standard_normal((S, 2)) * 100)
+        mem = torch.as_tensor((rng.standard_normal((S, C)) * 100)
                               .astype(np.float32), device="cuda")
         before = deemphasis.deemphasis_launches
-        y, m = deemphasis.deemphasis(x, mem)
+        pcm, m = deemphasis.deemphasis_pcm(x, mem)
         torch.cuda.synchronize()
         assert deemphasis.deemphasis_launches == before + 1
-        want_y, want_m = deemphasis.deemphasis_reference(x, mem)
-        scale = want_y.abs().max().item()
-        assert (y - want_y).abs().max().item() < 1e-4 * scale
-        assert (m - want_m).abs().max().item() < 1e-4 * scale
+        want_pcm, want_m = deemphasis.deemphasis_pcm_reference(x, mem)
+        assert pcm.shape == (S, N, C) and pcm.is_contiguous()
+        scale = want_pcm.abs().max().item()
+        assert (pcm - want_pcm).abs().max().item() < 1e-4 * scale
+        assert (m - want_m).abs().max().item() < 1e-4 * scale * 32768
 
 
 def test_device_is_required():
