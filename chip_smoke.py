@@ -2,17 +2,19 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Drives mousiki_tpu_torch's plan-mode CELT stream decoder (48 kHz stereo,
-20 ms frames) end to end on the card, with the JAX package nowhere in the
-process (it fails first thing if any module of mousiki_tpu is loaded):
+Drives mousiki_tpu_torch's stream decoders end to end on the card: the
+plan-mode CELT decoder (48 kHz stereo, 20 ms frames) and the mixed SILK /
+CELT / hybrid decoder (mono), with the JAX package nowhere in the process
+(it fails first thing if any module of mousiki_tpu is loaded):
 
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
-  2. build, both at once: the native host symbol stage
-     (csrc/celt_host.cpp, g++) and the fused de-emphasis kernel
-     (csrc/deemphasis.cu, nvcc), each with its build time;
+  2. build, all at once: the three native host libraries (csrc/*.cpp,
+     g++: celt_host, silk_host, opus_host) and the fused de-emphasis
+     kernel (csrc/deemphasis.cu, nvcc), each with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
-     the card at (S, C, N) = (256, 2, 960), the main path's shape, and
-     (256, 2, 120), (7, 1, 960), (3, 2, 240); bar 1e-4 * max|pcm|. For
+     the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
+     the CELT and the mixed main path give it, and (256, 2, 120),
+     (7, 1, 960), (3, 2, 240); bar 1e-4 * max|pcm|. For
      each: the kernel's device time (torch.profiler; input in L2 as on the
      main path, and L2 evicted by a 128 MB read before each launch), its
      HBM bound and bound share, the plain
@@ -27,12 +29,32 @@ process (it fails first thing if any module of mousiki_tpu is loaded):
   5. loss: 256 streams with ~10% seeded packet loss, the first 8 streams
      against the port run on the CPU (5e-3 on lost and just-recovered
      frames, 2e-4 elsewhere);
-  6. timing: steady-state ms/step and aggregate realtime-x at S = 256 and
-     S = 1024 through decode_stream, and one profiled step (kernel
-     launches, device busy time, host time by stage).
+  6. the CELT decoder's other modes at S = 256: decode_frames_scanned,
+     decode_stream(chunk=4) and decode_stream with overlap_host each equal
+     to the stepped output exactly, and the non-plan path within 2e-4 of
+     the golden PCM;
+  7. mixed main path: OpusStreamPipeline(256, channels=1); stream s plays
+     golden mono stream s % 5 (CELT, SILK 16 kHz, SILK 8 kHz, two hybrid),
+     whole packets, 12 frames; every stream within 2e-4 of the golden PCM
+     (hybrid_fb_48k from frame 2 on), modes 0, 1 and 2 all present, the
+     kernel launched once a step (counts reset just before);
+  8. device SILK: SilkStreamPipeline(256, synthesis="device") against
+     synthesis="host" on the SILK 16 kHz payloads, SNR above 45 dB; and
+     the device-SILK lane of the mixed decoder within 5e-3 of its host
+     lane;
+  9. mixed loss: ~10% seeded loss on the mono mix, the first 8 streams
+     against the port run on the CPU (5e-3 / 2e-4 as in phase 5);
+ 10. timing: steady-state ms/step and aggregate realtime-x through
+     decode_stream: the CELT decoder at S = 256 (default, overlap_host,
+     chunk=4) and S = 1024, the mixed decoder at S = 256 and S = 1024,
+     each timed three times, the modes of one width taking turns (every
+     run, the least and the median are reported); and profiled steps
+     (kernel launches, device busy time, host time by stage) of both
+     decoders and of the device-SILK lane.
 
 Any failure raises (exit code != 0). Lines before the last report each
-phase; the line before the last is the kernel table as JSON; the last
+phase; the line before the last is the kernel table as JSON (one row for
+each main path's shape, every number of a row measured at that shape); the last
 line is {"ok": true, "device": {...}}. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
 the profiled steps to DIR/profile_*.txt.
@@ -52,12 +74,14 @@ from functools import partial
 import numpy as np
 import torch
 
-from golden_streams import frame_batch, golden_pcm, load_stereo_celt
+from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
+                            load_mono_mix, load_stereo_celt)
 from mousiki_tpu_torch._device import require_cuda
 from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import deemphasis as deemph
 from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
-                                        set_plan_profile)
+                                        OpusStreamPipeline,
+                                        SilkStreamPipeline, set_plan_profile)
 
 FRAME = 960
 GOLDEN_TOL = 2e-4
@@ -65,7 +89,12 @@ KERNEL_REL_TOL = 1e-4
 # NVIDIA H100 SXM data sheet peaks (dense, no sparsity, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-KERNEL_SHAPES = ((256, 2, 960), (256, 2, 120), (7, 1, 960), (3, 2, 240))
+S_MAIN, S_WIDE = 256, 1024      # streams of the main paths / the wide timing
+# (S, C, N) of the kernel's input on the CELT and on the mixed main path
+CELT_SHAPE, MIXED_SHAPE = (S_MAIN, 2, FRAME), (S_MAIN, 1, FRAME)
+KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, (256, 2, 120), (7, 1, 960),
+                 (3, 2, 240))
+TIMING_REPEATS = 3
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -110,13 +139,16 @@ def _timed(fn):
 
 
 def phase_build():
-    """g++ for the host stage and nvcc for the kernel, started together."""
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        host = pool.submit(_timed, _build.build_host)
+    """g++ for the three host libraries and nvcc for the kernel, started
+    together."""
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        hosts = {name: pool.submit(_timed, partial(_build.build_host, name))
+                 for name in _build.HOST_LIBS}
         kernel = pool.submit(_timed, deemph.build_kernel)
-        say("build", host_library="csrc/celt_host.cpp",
-            host_seconds=host.result(), kernel="csrc/deemphasis.cu",
-            kernel_seconds=kernel.result())
+        say("build", kernel="csrc/deemphasis.cu",
+            kernel_seconds=kernel.result(),
+            **{f"{name}_seconds": fut.result()
+               for name, fut in hosts.items()})
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -213,13 +245,13 @@ def phase_kernel(dev):
                    plain_device_ms=plain_ms, copy_floor_ms=copy_ms,
                    call_ms=_cuda_ms(run, 200),
                    plain_call_ms=_cuda_ms(plain, 50))
-        say("kernel", S=S, C=C, N=N, **row)
+        say(f"kernel_{S}x{C}x{N}", **row)
         table[(S, C, N)] = row
     return table
 
 
 def phase_main_path(dev, streams):
-    S, F = 256, 12
+    S, F = S_MAIN, 12
     pipe = CeltStreamPipeline(S, channels=2, use_plan=True, device=dev)
     deemph.reset_launches()
     worst = 0.0
@@ -239,23 +271,29 @@ def phase_main_path(dev, streams):
     n = deemph.deemphasis_launches
     check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
           f"deemphasis launches per step {launches}: one a step expected")
+    # the arena is staged in page-locked memory, so its copy is asynchronous
+    arena = pipe._native._plan_db[FRAME][1][0][0]["backing"]
+    pinned = torch.from_numpy(arena).is_pinned()
+    check(pinned, "the plan arena is not in page-locked memory")
     say("main_path", streams=S, frames=F, worst_abs_err_vs_golden=worst,
         bar=GOLDEN_TOL, deemphasis_launches=n,
-        launches_after_each_step=launches)
+        launches_after_each_step=launches, arena_pinned=pinned)
     return n, worst
 
 
-def phase_loss(dev, streams):
-    S, F, K = 256, 12, 8
+def _loss_phase(phase, dev, make_pipe, batch_fn):
+    """S = 256 streams with ~10% seeded packet loss on the card; the first
+    8 streams against the same pipeline run on the CPU."""
+    S, F, K = S_MAIN, 12, 8
     rng = np.random.default_rng(17)
     lost = rng.random((S, F)) < 0.10
     lost[:, 0] = False
     lost[1, 5:7] = True
-    gpu = CeltStreamPipeline(S, device=dev)
-    cpu = CeltStreamPipeline(K, device="cpu")
+    gpu = make_pipe(S, dev)
+    cpu = make_pipe(K, "cpu")
     worst_rx, worst_lost = 0.0, 0.0
     for f in range(F):
-        batch = frame_batch(streams, S, f, lost[:, f])
+        batch = batch_fn(S, f, lost[:, f])
         got = gpu.step(batch).cpu().numpy()
         check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
         want = cpu.step(batch[:K]).numpy()
@@ -263,35 +301,150 @@ def phase_loss(dev, streams):
             err = float(np.abs(got[s] - want[s]).max())
             plc = bool(lost[s, f] or (f and lost[s, f - 1]))
             check(err < (5e-3 if plc else 2e-4),
-                  f"loss frame {f} stream {s}: {err} (lost={lost[s, f]})")
+                  f"{phase} frame {f} stream {s}: {err} "
+                  f"(lost={lost[s, f]})")
             if plc:
                 worst_lost = max(worst_lost, err)
             else:
                 worst_rx = max(worst_rx, err)
-    say("loss", streams=S, frames=F, loss_share=float(lost.mean()),
+    say(phase, streams=S, frames=F, loss_share=float(lost.mean()),
         compared_streams=K, worst_err_received=worst_rx,
         worst_err_concealed=worst_lost)
 
 
-def _time_stream(dev, streams, S, warm=3, steps=20):
-    pipe = CeltStreamPipeline(S, device=dev)
+def phase_loss(dev, streams):
+    _loss_phase("loss", dev, lambda S, d: CeltStreamPipeline(S, device=d),
+                partial(frame_batch, streams))
 
+
+def phase_mixed_loss(dev, mono):
+    _loss_phase("mixed_loss", dev,
+                lambda S, d: OpusStreamPipeline(S, channels=1, device=d),
+                partial(frame_batch, mono, packets=True))
+
+
+def phase_celt_modes(dev, streams):
+    """The scanned decode, the chunked stream and the threaded host overlap
+    against the stepped output at S = 256 (equal exactly), and the
+    non-plan path against the golden PCM."""
+    S, F = S_MAIN, 12
+    lost = np.zeros((S, F), bool)
+    lost[::9, 7] = True                      # concealment inside a chunk
+    frames = [frame_batch(streams, S, f, lost[:, f]) for f in range(F)]
+    stepped = CeltStreamPipeline(S, device=dev)
+    want = [stepped.step(batch) for batch in frames]
+
+    def run(mode):
+        pipe = CeltStreamPipeline(S, device=dev)
+        if mode == "scanned":
+            return list(pipe.decode_frames_scanned(frames))
+        if mode == "chunk4":
+            return list(pipe.decode_stream(iter(frames), chunk=4))
+        pipe.overlap_host = True
+        return list(pipe.decode_stream(iter(frames)))
+
+    diffs = {}
+    for mode in ("scanned", "chunk4", "overlap_host"):
+        got = run(mode)
+        check(len(got) == F, f"{mode}: {len(got)} frames of {F}")
+        diffs[mode] = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+        check(diffs[mode] == 0.0,
+              f"{mode} differs from stepped output by {diffs[mode]}")
+    nonplan = CeltStreamPipeline(S, use_plan=False, device=dev)
+    worst = 0.0
+    for f in range(F):
+        got = nonplan.step(frame_batch(streams, S, f)).cpu().numpy()
+        worst = max(worst,
+                    float(np.abs(got - golden_pcm(streams, S, f)).max()))
+    check(worst <= GOLDEN_TOL, f"non-plan path: {worst} from the golden PCM")
+    say("celt_modes", streams=S, frames=F,
+        **{f"max_abs_diff_{m}": d for m, d in diffs.items()},
+        non_plan_worst_abs_err_vs_golden=worst)
+
+
+def phase_mixed_main(dev, mono):
+    S, F = S_MAIN, 12
+    pipe = OpusStreamPipeline(S, channels=1, device=dev)
+    deemph.reset_launches()
+    worst = 0.0
+    launches = []
+    modes = set()
+    for f in range(F):
+        pcm = pipe.step(frame_batch(mono, S, f, packets=True))
+        torch.cuda.synchronize()
+        launches.append(deemph.deemphasis_launches)
+        got = pcm.cpu().numpy()
+        check(got.shape == (S, FRAME, 1), f"mixed pcm shape {got.shape}")
+        check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
+        modes |= set(int(m) for m in pipe.last_modes)
+        err = np.abs(got - golden_pcm(mono, S, f)).max(axis=(1, 2))
+        held = np.array([f >= MIX_GOLDEN_FROM.get(mono[s % len(mono)].name, 0)
+                         for s in range(S)])
+        check(bool((err[held] <= GOLDEN_TOL).all()),
+              f"mixed frame {f}: {int((err[held] > GOLDEN_TOL).sum())} "
+              f"streams beyond {GOLDEN_TOL}, worst {err[held].max()}")
+        worst = max(worst, float(err[held].max()))
+    n = deemph.deemphasis_launches
+    check(modes == {0, 1, 2}, f"modes seen {modes}: CELT, SILK and hybrid "
+          "expected")
+    check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
+          f"deemphasis launches per mixed step {launches}: one expected")
+    say("mixed_main_path", streams=S, frames=F, modes=sorted(modes),
+        worst_abs_err_vs_golden=worst, bar=GOLDEN_TOL,
+        deemphasis_launches=n, launches_after_each_step=launches)
+    return n
+
+
+def phase_device_silk(dev, mono):
+    """The device SILK synthesis against the bit-exact host synthesis."""
+    S, F = S_MAIN, 12
+    payloads = mono[1].payloads                       # silk_wb_16k
+    host = SilkStreamPipeline(S, synthesis="host", device=dev)
+    device = SilkStreamPipeline(S, synthesis="device", device=dev)
+    a, b = [], []
+    for f in range(F):
+        a.append(host.step([payloads[f]] * S).cpu().numpy())
+        b.append(device.step([payloads[f]] * S).cpu().numpy())
+    a, b = np.concatenate(a, axis=1), np.concatenate(b, axis=1)
+    check(bool(np.isfinite(b).all()), "non-finite device SILK pcm")
+    snr = 10 * np.log10((a ** 2).mean(axis=1)
+                        / (((a - b) ** 2).mean(axis=1) + 1e-12))
+    check(float(snr.min()) > 45.0, f"device SILK SNR {snr.min()} dB <= 45")
+    lane = OpusStreamPipeline(S, silk_synthesis="device", device=dev)
+    plain = OpusStreamPipeline(S, device=dev)
+    worst = 0.0
+    for f in range(F):
+        batch = frame_batch(mono, S, f, packets=True)
+        got = lane.step(batch)
+        check(5 in set(int(m) for m in lane.last_modes),
+              "no stream rode the device-SILK lane")
+        worst = max(worst, float((got - plain.step(batch)).abs().max()))
+    check(worst < 5e-3, f"device-SILK lane {worst} from the host lane")
+    say("device_silk", streams=S, frames=F, min_snr_db=float(snr.min()),
+        lane_worst_abs_err_vs_host_lane=worst)
+
+
+def _time_stream(pipe, batch_fn, warm=3, steps=12, **kwargs):
+    """Steady-state ms/step of pipe.decode_stream(**kwargs) over `steps`
+    frames after `warm`."""
     def frames(n, first):
-        return (frame_batch(streams, S, (first + i) % 12) for i in range(n))
+        return (batch_fn((first + i) % 12) for i in range(n))
 
-    for _ in pipe.decode_stream(frames(warm, 0)):
+    for _ in pipe.decode_stream(frames(warm, 0), **kwargs):
         pass
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = 0
-    for _ in pipe.decode_stream(frames(steps, warm)):
+    for _ in pipe.decode_stream(frames(steps, warm), **kwargs):
         n += 1
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n
-    return pipe, ms
+    check(n == steps, f"{n} frames of {steps} came out")
+    return (time.perf_counter() - t0) * 1e3 / n
 
 
-RANGES = ("plan.", "plc.", "synthesis.")   # record_function spans of the port
+# record_function spans of the port
+RANGES = ("host.", "plan.", "plc.", "synthesis.", "silk.", "mixed.")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
 
@@ -304,16 +457,17 @@ def _innermost_range(ev):
     return "outside"
 
 
-def _profile_step(pipe, streams, S, f, lost=None):
-    """One step under torch.profiler: kernel launches (host-side launch
-    calls, attributed to the innermost port span), device busy time (sum
-    of kernel durations) and host time by span."""
+def _profile_step(step, tag=None):
+    """One call of `step` under torch.profiler: kernel launches (host-side
+    launch calls, attributed to the innermost port span), device busy time
+    (sum of kernel durations) and host time by span. With a tag (and
+    --out) the profiler's table goes to profile_<tag>.txt."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.step(frame_batch(streams, S, f, lost))
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches: dict = {}
@@ -331,8 +485,7 @@ def _profile_step(pipe, streams, S, f, lost=None):
         elif ev.device_type == cuda and not ev.name.startswith(RANGES):
             kernels += 1
             device_us += ev.time_range.elapsed_us()
-    if OUT_DIR is not None:
-        tag = f"S{S}" + ("_lossy" if lost is not None else "")
+    if OUT_DIR is not None and tag is not None:
         with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as fh:
             fh.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=40))
@@ -342,19 +495,50 @@ def _profile_step(pipe, streams, S, f, lost=None):
             "launches_by_span": launches, "host_ms_by_span": host_ms}
 
 
-def phase_timing(dev, streams):
-    for S in (256, 1024):
-        pipe, ms = _time_stream(dev, streams, S)
-        say(f"timing_S{S}", streams=S, ms_per_step=ms,
-            realtime_x=S * 0.02 / (ms / 1e3))
-        # two profiled steps: the first warms the profiler up
-        _profile_step(pipe, streams, S, 4)
-        say(f"profile_S{S}", **_profile_step(pipe, streams, S, 5))
-        if S == 256:
+def _profile(name, step_of_frame):
+    """Two profiled steps: the first warms the profiler up."""
+    _profile_step(partial(step_of_frame, 4))
+    say(f"profile_{name}", **_profile_step(partial(step_of_frame, 5), name))
+
+
+def phase_timing(dev, streams, mono):
+    for S in (S_MAIN, S_WIDE):
+        celt_batch = partial(frame_batch, streams, S)
+        mixed_batch = partial(frame_batch, mono, S, packets=True)
+        pipe = CeltStreamPipeline(S, device=dev)
+        mixed = OpusStreamPipeline(S, channels=1, device=dev)
+        modes = {f"S{S}": (pipe, celt_batch, {}),
+                 f"mixed_S{S}": (mixed, mixed_batch, {})}
+        if S == S_MAIN:
+            overlapped = CeltStreamPipeline(S, device=dev)
+            overlapped.overlap_host = True
+            modes["S256_overlap_host"] = (overlapped, celt_batch, {})
+            modes["S256_chunk4"] = (CeltStreamPipeline(S, device=dev),
+                                    celt_batch, {"chunk": 4})
+        # the modes take turns, so that a slow stretch of the shared host
+        # does not fall on one of them alone
+        runs: dict = {name: [] for name in modes}
+        for rep in range(TIMING_REPEATS):
+            for name, (p, batch_fn, kwargs) in modes.items():
+                runs[name].append(_time_stream(
+                    p, batch_fn, warm=1 if rep else 3, **kwargs))
+        for name, ms in runs.items():
+            median = float(np.median(ms))
+            say(f"timing_{name}", streams=S, ms_per_step=median,
+                ms_per_step_min=min(ms), ms_per_step_runs=ms,
+                realtime_x=S * 0.02 / (median / 1e3), **modes[name][2])
+        _profile(f"S{S}", lambda f: pipe.step(celt_batch(f)))
+        _profile(f"mixed_S{S}", lambda f: mixed.step(mixed_batch(f)))
+        if S == S_MAIN:
             lost = np.zeros(S, bool)
             lost[::10] = True
-            say("profile_S256_lossy", **_profile_step(pipe, streams, S, 6,
-                                                      lost))
+            say("profile_S256_lossy", **_profile_step(
+                lambda: pipe.step(celt_batch(6, lost)), "S256_lossy"))
+            lane = OpusStreamPipeline(S, silk_synthesis="device", device=dev)
+            for f in range(4):
+                lane.step(mixed_batch(f))
+            _profile("mixed_S256_device_silk",
+                     lambda f: lane.step(mixed_batch(f)))
 
 
 def main() -> int:
@@ -370,20 +554,31 @@ def main() -> int:
     phase_build()
     table = phase_kernel(dev)
     streams = load_stereo_celt()
+    mono = load_mono_mix()
     set_plan_profile(*SERVING_PROFILE)
-    n_launch, _ = phase_main_path(dev, streams)
+    n_celt, _ = phase_main_path(dev, streams)
     phase_loss(dev, streams)
-    phase_timing(dev, streams)
-    row = table[(256, 2, FRAME)]
+    phase_celt_modes(dev, streams)
+    n_mixed = phase_mixed_main(dev, mono)
+    phase_device_silk(dev, mono)
+    phase_mixed_loss(dev, mono)
+    phase_timing(dev, streams, mono)
+    # one row for each main path's shape: the path's launches (counted
+    # from 0 just before it ran) beside what phase 3 measured at that shape
     kernels = {"kernels": [{
         "name": "deemphasis_pcm", "route": "cuda",
         "source": "mousiki_tpu_torch/csrc/deemphasis.cu",
         "replaces": "mousiki_tpu/ops/pallas_kernels.py:23",
-        "launches": n_launch, "max_abs_err": row["max_abs_err"],
-        "ms": row["kernel_device_ms"], "plain_ms": row["plain_device_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "path": path, "shape": list(shape), "launches": launches,
+        "max_abs_err": table[shape]["max_abs_err"],
+        "ms": table[shape]["kernel_device_ms"],
+        "plain_ms": table[shape]["plain_device_ms"],
+        "bound_ms": table[shape]["bound_ms"],
+        "bound_by": table[shape]["bound_by"],
         # no PyTorch call computes a first-order IIR
-        "library_ms": None}]}
+        "library_ms": None}
+        for path, shape, launches in (("celt", CELT_SHAPE, n_celt),
+                                      ("mixed", MIXED_SHAPE, n_mixed))]}
     RESULTS["kernels"] = kernels
     if OUT_DIR is not None:
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

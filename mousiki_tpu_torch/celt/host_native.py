@@ -1,11 +1,15 @@
 """ctypes binding for the port's own copy of the native (C++) CELT host
-symbol decoder, plan mode only.
+symbol decoder.
 
-A copy of the plan path of mousiki_tpu/celt/host_native.py. The library
-builds at first use from `csrc/celt_host.cpp` (a byte-for-byte copy of
-native/celt_host.cpp) into `mousiki_tpu_torch/build/libcelt_host.so`;
-a failed build raises with g++'s stderr. It has its own plan-profile
-globals, so `set_plan_profile` here sets the port's library only.
+A copy of the batch decoder of mousiki_tpu/celt/host_native.py: the plan
+path (packed band plans) and the non-plan batch call (dense spectra).
+The library builds at first use from `csrc/celt_host.cpp` (a
+byte-for-byte copy of native/celt_host.cpp) into
+`mousiki_tpu_torch/build/libcelt_host.so`; a failed build raises with
+g++'s stderr. Each of the port's libraries that carries the plan writer
+(this one and `libopus_host.so`) has its own plan-profile globals:
+`set_plan_profile` here sets every one the process has loaded, and none
+of the JAX package's.
 """
 
 from __future__ import annotations
@@ -30,15 +34,16 @@ def _load():
     lib.celt_host_destroy.restype = None
     ip = C.POINTER(C.c_int32)
     vp = C.POINTER(C.c_void_p)
+    dp = C.POINTER(C.c_double)
+    fp = C.POINTER(C.c_float)
+    lib.celt_host_decode_batch.argtypes = [
+        C.POINTER(C.c_void_p), C.c_char_p, ip, ip, C.c_int, C.c_int, C.c_int,
+        C.c_int, C.c_int, C.c_int, fp, dp, ip, dp, ip, C.c_int]
+    lib.celt_host_decode_batch.restype = None
     lib.celt_host_decode_plan_batch.argtypes = [
         C.POINTER(C.c_void_p), C.c_char_p, ip, ip, C.c_int, C.c_int, C.c_int,
         C.c_int, C.c_int, C.c_int, vp, C.c_int]
     lib.celt_host_decode_plan_batch.restype = None
-    lib.celt_host_set_plan_profile.argtypes = [C.c_int, C.c_int, C.c_int,
-                                               C.c_int]
-    lib.celt_host_set_plan_profile.restype = None
-    lib.celt_host_set_fill_pool.argtypes = [C.c_int]
-    lib.celt_host_set_fill_pool.restype = None
     _apply_profile(lib)
     _lib = lib
     return lib
@@ -67,7 +72,8 @@ def set_plan_profile(tiers=None, fills=None, pool=None) -> None:
     axis); pool: per-stream fill POOL slots on the wire (<= 42 * fills;
     default the dense bound). None restores the full profile. Must be
     called BEFORE creating native batches (arena layouts bake the profile
-    in; existing NativeCeltHostBatch objects keep stale arenas).
+    in; existing NativeCeltHostBatch / NativeOpusHostBatch objects keep
+    stale arenas). Applies to every loaded library of the port.
     """
     global _TIERS, _FILL, _POOL
     t = tuple(int(x) for x in tiers) if tiers is not None \
@@ -84,16 +90,28 @@ def set_plan_profile(tiers=None, fills=None, pool=None) -> None:
     _TIERS = tuple((n, t[i]) for i, (n, _) in enumerate(_FULL_TIERS))
     _FILL = f
     _POOL = p
-    if _lib is not None:
-        _apply_profile(_lib)
+    for lib in _profile_libs():
+        _apply_profile(lib)
 
 
 def get_plan_profile():
     return tuple(s for _, s in _TIERS), _FILL, _POOL
 
 
+def _profile_libs():
+    """Every loaded library of the port carrying the plan writer (each
+    .so has its own copy of the capacity globals)."""
+    libs = [_lib, _build.loaded_host("opus_host")]
+    return [lib for lib in libs if lib is not None]
+
+
 def _apply_profile(lib) -> None:
-    """Push the current profile into the library."""
+    """Push the current profile into a library."""
+    lib.celt_host_set_plan_profile.argtypes = [C.c_int, C.c_int, C.c_int,
+                                               C.c_int]
+    lib.celt_host_set_plan_profile.restype = None
+    lib.celt_host_set_fill_pool.argtypes = [C.c_int]
+    lib.celt_host_set_fill_pool.restype = None
     t, f, p = get_plan_profile()
     lib.celt_host_set_plan_profile(t[0], t[1], t[2], f)
     lib.celt_host_set_fill_pool(p)
@@ -195,19 +213,28 @@ def arena_word_layout(S: int, channels: int, frame: int):
     return n32, n32, sizes["a16"], n32 + w16, sizes["a8"], n32 + w16 + w8
 
 
-def alloc_plan_arenas(S: int, channels: int, frame: int):
+def _zeros_i32(shape):
+    return np.zeros(shape, np.int32)
+
+
+def alloc_plan_arenas(S: int, channels: int, frame: int, backing=None):
     """Zeroed plan arenas + the separate native output arrays.
 
     All three arenas are views of ONE int32 backing buffer (returned as
     arenas["backing"]) so the whole plan ships to the device as a single
-    H2D transfer. The native decoder only writes flagged slots and the
+    H2D transfer. `backing` is a zeroed (total_words,) int32 array to lay
+    the arenas in (a row of a chunk stack, page-locked memory); None
+    allocates one. The native decoder only writes flagged slots and the
     device executor masks by those flags (zero defaults are correct for
     every plane, including call_blend_upto where 0 and -1 both mean "no
     blend").
     """
     layout, _ = plan_arena_layout(S, channels, frame)
     n32, o16, n16, o8, n8, total = arena_word_layout(S, channels, frame)
-    backing = np.zeros(total, np.int32)
+    if backing is None:
+        backing = _zeros_i32(total)
+    if backing.shape != (total,) or backing.dtype != np.int32:
+        raise ValueError(f"backing must be ({total},) int32")
     arenas = {"backing": backing,
               "a32": backing[:n32],
               "a16": backing[o16: o16 + (n16 + 1) // 2].view(np.int16)[:n16],
@@ -231,6 +258,13 @@ def plan_views(arenas: dict, aux: dict, layout: dict) -> dict:
     return out
 
 
+def plane_of(arenas: dict, layout: dict, key: str) -> np.ndarray:
+    """The flat arena slice that holds plane `key` (a one-byte plane
+    reads as its own values)."""
+    name, off, shape = layout[key]
+    return arenas[name][off:off + int(np.prod(shape))]
+
+
 def _plan_ptr_table(views: dict):
     ptrs = (C.c_void_p * len(_PTR_ORDER))()
     for k, key in enumerate(_PTR_ORDER):
@@ -240,11 +274,18 @@ def _plan_ptr_table(views: dict):
 
 class NativeCeltHostBatch:
     """S independent native host decoders driven by one multithreaded
-    call, emitting packed band plans for the device executor."""
+    call (n_threads workers; 0 = one per hardware thread), emitting
+    packed band plans for the device executor, or dense spectra on the
+    non-plan path.
+
+    arena_alloc: optional callable (shape) -> zeroed int32 numpy array,
+    from which the plan arenas' backing buffers come (a pipeline on a GPU
+    passes page-locked memory so that its copies can be asynchronous)."""
 
     def __init__(self, n_streams: int, channels: int = 2,
                  start: int = 0, end: int = 21,
-                 disable_inv: bool | None = None, n_threads: int = 0):
+                 disable_inv: bool | None = None, n_threads: int = 0,
+                 arena_alloc=None):
         lib = _load()
         self._lib = lib
         self.S = n_streams
@@ -256,9 +297,12 @@ class NativeCeltHostBatch:
         self.n_threads = n_threads
         self._states = (C.c_void_p * n_streams)(
             *[lib.celt_host_create() for _ in range(n_streams)])
-        self._bufs = {}  # frame_size -> (offs, lens) scratch
+        self._arena_alloc = arena_alloc or _zeros_i32
+        self._lenbufs = (np.empty(n_streams, np.int32),
+                         np.empty(n_streams, np.int32))
         self._plan_nbufs = 1
         self._plan_db = {}
+        self._plan_chunk_db = {}
 
     def __del__(self):
         if getattr(self, "_states", None) is not None and self._lib is not None:
@@ -267,18 +311,85 @@ class NativeCeltHostBatch:
                     self._lib.celt_host_destroy(st)
             self._states = None
 
-    def set_plan_buffers(self, n: int) -> None:
-        """Size the plan arena ring (default 1 buffer, reused in place).
+    def _marshal(self, payloads: list):
+        """(blob, offs, lens) of S payloads for a native batch call; a
+        None payload (lost packet) has length 0."""
+        if len(payloads) != self.S:
+            raise ValueError(f"{len(payloads)} payloads for {self.S} streams")
+        offs, lens = self._lenbufs
+        blob = b"".join(p for p in payloads if p is not None)
+        lens[:] = np.fromiter(
+            (0 if p is None else len(p) for p in payloads),
+            np.int32, count=len(payloads))
+        np.cumsum(lens[:-1], out=offs[1:], dtype=np.int32)
+        offs[0] = 0
+        return blob, offs, lens
 
-        n=2 lets a caller write the arenas of frame k+1 while those of
-        frame k are still being copied to the device. Clears any existing
-        arenas (layouts may embed a stale plan profile)."""
+    def decode(self, payloads: list, frame_size: int):
+        """Non-plan batch decode: the host reconstructs the PVQ bands too.
+
+        payloads: S byte strings. Returns (x (S, C, frame) f32 unit-norm
+        band shapes, band_log_e (S, 2, 21) f64, iflags (S, 4) int32
+        [transient, silence, pf_pitch, pf_tapset], pf_gains (S,) f64,
+        rcs (S,) int32). Outputs are freshly allocated every call."""
+        S, Cch = self.S, self.channels
+        if any(p is None for p in payloads):
+            raise ValueError("the non-plan decode has no loss concealment; "
+                             "use plan mode for lost packets")
+        blob, offs, lens = self._marshal(payloads)
+        # the native decoder fully overwrites every output element
+        x = np.empty((S, Cch, frame_size), np.float32)
+        ble = np.empty((S, 2, _NB), np.float64)
+        iflags = np.empty((S, 4), np.int32)
+        pf_gains = np.empty(S, np.float64)
+        rcs = np.empty(S, np.int32)
+        dp = C.POINTER(C.c_double)
+        fp = C.POINTER(C.c_float)
+        ip = C.POINTER(C.c_int32)
+        self._lib.celt_host_decode_batch(
+            self._states, blob, offs.ctypes.data_as(ip),
+            lens.ctypes.data_as(ip), S, frame_size, Cch, self.start, self.end,
+            1 if self.disable_inv else 0, x.ctypes.data_as(fp),
+            ble.ctypes.data_as(dp), iflags.ctypes.data_as(ip),
+            pf_gains.ctypes.data_as(dp), rcs.ctypes.data_as(ip),
+            self.n_threads)
+        return x, ble, iflags, pf_gains, rcs
+
+    def set_plan_buffers(self, n: int) -> None:
+        """Size the plan arena ring in use (default 1 buffer, reused in
+        place).
+
+        n=2 lets a caller write the arenas of frame k+1 (on a worker
+        thread: the C call releases the GIL) while those of frame k are
+        still being copied to the device. Arenas are allocated once, the
+        first time the ring needs them, and kept: a smaller ring uses the
+        first n of them."""
         if n < 1:
             raise ValueError("need >= 1 plan buffer")
-        if self._plan_nbufs == n:
-            return
         self._plan_nbufs = n
-        self._plan_db = {}
+
+    def _plan_slot(self, frame_size: int, backing=None):
+        """One arena set: (arenas, aux, layout, views, pointer table)."""
+        if backing is None:
+            _, _, _, _, _, total = arena_word_layout(self.S, self.channels,
+                                                     frame_size)
+            backing = self._arena_alloc((total,))
+        arenas, aux, layout = alloc_plan_arenas(self.S, self.channels,
+                                                frame_size, backing)
+        views = plan_views(arenas, aux, layout)
+        return arenas, aux, layout, views, _plan_ptr_table(views)
+
+    def _decode_plan_into(self, slot, payloads: list, frame_size: int):
+        arenas, aux, layout, views, ptrs = slot
+        blob, offs, lens = self._marshal(payloads)
+        views["lost8"][:] = lens == 0
+        ip = C.POINTER(C.c_int32)
+        self._lib.celt_host_decode_plan_batch(
+            self._states, blob, offs.ctypes.data_as(ip),
+            lens.ctypes.data_as(ip), self.S, frame_size, self.channels,
+            self.start, self.end, 1 if self.disable_inv else 0, ptrs,
+            self.n_threads)
+        return arenas, aux, layout
 
     def decode_plan_arenas(self, payloads: list, frame_size: int):
         """Symbol-only batch decode emitting packed band plans.
@@ -294,34 +405,49 @@ class NativeCeltHostBatch:
         flags, so stale values in inactive slots are never read. Callers
         that keep arenas across steps must copy them.
         """
-        S, Cch = self.S, self.channels
-        if len(payloads) != S:
-            raise ValueError(f"{len(payloads)} payloads for {S} streams")
-        if frame_size not in self._bufs:
-            self._bufs[frame_size] = (np.empty(S, np.int32),
-                                      np.empty(S, np.int32))
-        offs, lens = self._bufs[frame_size]
-        if frame_size not in self._plan_db:
-            ring = []
-            for _ in range(self._plan_nbufs):
-                arenas, aux, layout = alloc_plan_arenas(S, Cch, frame_size)
-                views = plan_views(arenas, aux, layout)
-                ring.append((arenas, aux, layout, views,
-                             _plan_ptr_table(views)))
-            self._plan_db[frame_size] = [0, ring]
-        db = self._plan_db[frame_size]
-        arenas, aux, layout, views, ptrs = db[1][db[0]]
-        db[0] = (db[0] + 1) % len(db[1])
-        blob = b"".join(p for p in payloads if p is not None)
-        lens[:] = np.fromiter(
-            (0 if p is None else len(p) for p in payloads),
-            np.int32, count=len(payloads))
-        views["lost8"][:] = lens == 0
-        np.cumsum(lens[:-1], out=offs[1:], dtype=np.int32)
-        offs[0] = 0
-        ip = C.POINTER(C.c_int32)
-        self._lib.celt_host_decode_plan_batch(
-            self._states, blob, offs.ctypes.data_as(ip),
-            lens.ctypes.data_as(ip), S, frame_size, Cch, self.start, self.end,
-            1 if self.disable_inv else 0, ptrs, self.n_threads)
-        return arenas, aux, layout
+        db = self._plan_db.setdefault(frame_size, [0, []])
+        ring = db[1]
+        while len(ring) < self._plan_nbufs:
+            ring.append(self._plan_slot(frame_size))
+        i = db[0] % self._plan_nbufs
+        db[0] = i + 1
+        return self._decode_plan_into(ring[i], payloads, frame_size)
+
+    def decode_plan_chunk(self, frames: list, frame_size: int):
+        """Decode K frame batches straight into ONE contiguous
+        (K, total_words) int32 backing, the stacked input of
+        ops/band_exec.plan_synthesis_scan, with no per-frame copy.
+
+        frames: list of K payload lists (each length S; None = lost).
+        Returns (backing2d, aux_list, any_direct, any_lost): backing2d is
+        the (K, total_words) arena stack (the first K rows of one
+        backing per frame size, reused across calls and replaced only by
+        a call with more frames than any before: callers must consume or
+        copy it before the next call), aux_list holds each frame's
+        {x_direct, band_log_e, ...}, any_direct says whether any stream
+        of any frame fell back to the direct decoder, and any_lost[k]
+        whether frame k lost a packet.
+        """
+        K = len(frames)
+        held = self._plan_chunk_db.get(frame_size)
+        if held is None or len(held[1]) < K:
+            _, _, _, _, _, total = arena_word_layout(self.S, self.channels,
+                                                     frame_size)
+            backing2d = self._arena_alloc((K, total))
+            held = self._plan_chunk_db[frame_size] = (
+                backing2d, [self._plan_slot(frame_size, backing2d[k])
+                            for k in range(K)])
+        backing2d, slots = held
+        if K < len(slots):
+            backing2d = backing2d[:K]
+        aux_list = []
+        any_lost = []
+        any_direct = False
+        for slot, payloads in zip(slots, frames):
+            arenas, aux, layout = self._decode_plan_into(slot, payloads,
+                                                         frame_size)
+            any_direct |= bool(plane_of(arenas, layout, "direct").any())
+            any_lost.append(bool(plane_of(arenas, layout, "lost8").any()))
+            aux_list.append(aux)
+        return backing2d, aux_list, any_direct, any_lost
+

@@ -3,16 +3,24 @@
 The codec has no weights: its parameters are constant operators (built
 from the same numpy code on both sides) and the per-stream state. A JAX
 pipeline's mid-stream `state` / `plc_state`, read out with `np.asarray`,
-continues in the port through these functions, and back.
+continues in the port through these functions, and back. The mixed
+pipeline adds the resamplers' state per SILK rate, the one-sample SILK
+delay, the previous rates and (device-SILK lane) the synthesis state:
+`MixedState`. The native decoders' state lives in C++ on both sides and
+is reached by feeding both the same packets.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _device
 from .ops.plc import PlcState
+from .ops.silk_resampler import Up48State
+from .ops.silk_synthesis import SilkStreamState
 from .ops.synthesis import StreamState
 
 
@@ -40,3 +48,37 @@ def stream_state_to_numpy(state: StreamState) -> StreamState:
 
 def plc_state_to_numpy(plc: PlcState) -> PlcState:
     return PlcState(*(v.detach().cpu().numpy() for v in plc))
+
+
+class MixedState(NamedTuple):
+    """The device state OpusStreamPipeline keeps beside `state` and
+    `plc_state`, as numpy arrays (or anything np.asarray reads)."""
+    rs_states: dict          # SILK rate in kHz -> Up48State
+    silk_prev: np.ndarray    # (S * channels,) last SILK sample of each row
+    prev_fs: np.ndarray      # (S,) int32 SILK rate of the previous frame
+    silk_dev_state: tuple | None   # SilkStreamState of the device lane
+
+
+def load_mixed_state(pipe, mixed: MixedState) -> None:
+    """Set an OpusStreamPipeline's resampler / SILK device state from
+    numpy arrays, on the pipeline's device."""
+    dev = pipe.device
+    pipe.rs_states = {int(r): Up48State(*(_tensor(v, dev) for v in st))
+                      for r, st in mixed.rs_states.items()}
+    pipe.silk_prev = _tensor(mixed.silk_prev, dev)
+    pipe.prev_fs = _tensor(np.asarray(mixed.prev_fs, np.int32), dev)
+    if mixed.silk_dev_state is not None:
+        pipe.silk_dev_state = SilkStreamState(
+            *(_tensor(v, dev) for v in mixed.silk_dev_state))
+
+
+def mixed_state_to_numpy(pipe) -> MixedState:
+    def arrays(state):
+        return type(state)(*(v.detach().cpu().numpy() for v in state))
+
+    return MixedState(
+        rs_states={r: arrays(st) for r, st in pipe.rs_states.items()},
+        silk_prev=pipe.silk_prev.detach().cpu().numpy(),
+        prev_fs=pipe.prev_fs.detach().cpu().numpy(),
+        silk_dev_state=(None if pipe.silk_dev_state is None
+                        else arrays(pipe.silk_dev_state)))

@@ -6,8 +6,10 @@ loaded with ctypes:
 
   * CUDA kernels (`csrc/<name>.cu`), each with a plain `extern "C"`
     entry point, compiled by `nvcc` for sm_90a (`load`);
-  * the C++ host symbol stage (`csrc/celt_host.cpp`), compiled by `g++`
-    (`load_host`).
+  * the C++ host stages, compiled by `g++` (`load_host`): `celt_host`
+    (the CELT symbol decoder), `silk_host` (the SILK decoder) and
+    `opus_host` (the TOC-routed mixed stage, which links the other two
+    sources in and so carries its own copy of their globals).
 
 Nothing is compiled when a module is imported: the CPU tests import
 every module on a machine without `nvcc`. A library is compiled to a
@@ -34,7 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # copy of the same symbols is loaded in the same process
 HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread",
               "-Wl,-Bsymbolic")
-HOST_SOURCES = ("celt_host.cpp", "celt_tables.h")
+# library -> (sources to compile, headers they include)
+HOST_LIBS = {
+    "celt_host": (("celt_host.cpp",), ("celt_tables.h",)),
+    "silk_host": (("silk_host.cpp",), ("silk_tables.h",)),
+    "opus_host": (("opus_host.cpp", "celt_host.cpp", "silk_host.cpp"),
+                  ("celt_tables.h", "silk_tables.h")),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -51,20 +59,22 @@ def nvcc_path() -> str:
                        "kernels build only where the CUDA toolkit is")
 
 
-def _compile(cmd: list, srcs: list, out: str) -> str:
-    """Run `cmd + ["-o", tmp, srcs[0]]` unless `out` is newer than every
-    file of `srcs`; returns `out`. Raises with the compiler's stderr."""
+def _compile(cmd: list, srcs: list, out: str, deps: tuple = ()) -> str:
+    """Run `cmd + ["-o", tmp] + srcs` unless `out` is newer than every
+    file of `srcs` and `deps`; returns `out`. Raises with the compiler's
+    stderr."""
     if os.path.exists(out) and os.path.getmtime(out) >= max(
-            os.path.getmtime(s) for s in srcs):
+            os.path.getmtime(s) for s in (*srcs, *deps)):
         return out
     os.makedirs(BUILD, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
     os.close(fd)
     try:
-        proc = subprocess.run([*cmd, "-o", tmp, srcs[0]],
+        proc = subprocess.run([*cmd, "-o", tmp, *srcs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"{cmd[0]} failed on {srcs[0]}:\n{proc.stderr}")
+            raise RuntimeError(
+                f"{cmd[0]} failed on {' '.join(srcs)}:\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -80,12 +90,15 @@ def build(name: str) -> str:
                     os.path.join(BUILD, f"lib{name}.so"))
 
 
-def build_host() -> str:
-    """Compile csrc/celt_host.cpp into build/libcelt_host.so unless it is
-    up to date; returns the library path. Raises with g++'s stderr."""
+def build_host(name: str = "celt_host") -> str:
+    """Compile the host library `name` (a key of HOST_LIBS) into
+    build/lib<name>.so unless it is up to date; returns the library
+    path. Raises with g++'s stderr."""
+    srcs, headers = HOST_LIBS[name]
     return _compile(["g++", *HOST_FLAGS],
-                    [os.path.join(CSRC, s) for s in HOST_SOURCES],
-                    os.path.join(BUILD, "libcelt_host.so"))
+                    [os.path.join(CSRC, s) for s in srcs],
+                    os.path.join(BUILD, f"lib{name}.so"),
+                    tuple(os.path.join(CSRC, h) for h in headers))
 
 
 def _cached(key: str, path_fn) -> ctypes.CDLL:
@@ -101,7 +114,12 @@ def load(name: str) -> ctypes.CDLL:
     return _cached(name, lambda: build(name))
 
 
-def load_host() -> ctypes.CDLL:
-    """The loaded host symbol stage (csrc/celt_host.cpp), built on first
-    call."""
-    return _cached("celt_host", build_host)
+def load_host(name: str = "celt_host") -> ctypes.CDLL:
+    """The loaded host library `name` (a key of HOST_LIBS), built on
+    first call."""
+    return _cached(name, lambda: build_host(name))
+
+
+def loaded_host(name: str):
+    """The host library `name` if this process has loaded it, else None."""
+    return _libs.get(name)

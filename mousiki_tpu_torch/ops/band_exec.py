@@ -785,3 +785,32 @@ def plan_synthesis_step_plc(consts, plc_consts, state, plc_state, backing,
     return plan_plc_core(consts, plc_consts, state, plc_state, a32, a16, a8,
                          x_direct, mats, any_lost=any_lost,
                          channels=channels, frame=frame)
+
+
+def plan_synthesis_scan(consts, plc_consts, state, plc_state, backings,
+                        x_directs, mats, *, any_lost, channels: int = 2,
+                        frame: int = 960, n_streams: int):
+    """plan_synthesis_step_plc over K stacked frames.
+
+    backings: (K, total_words) int32, K packed plan arenas; x_directs:
+    (K, S, C, frame) direct-fallback spectra, or one (S, C, frame) tensor
+    shared by every frame (the all-zero one when no stream fell back);
+    any_lost: K bools, the host's copy of each frame's lost8.any().
+
+    The reference scans with lax.scan inside one program; in eager
+    PyTorch this is a loop over K that threads `state` and `plc_state`
+    through the same step, so its output equals K single steps exactly.
+    Returns ((K, S, frame, channels) pcm, state, plc_state).
+    """
+    K = backings.shape[0]
+    if len(any_lost) != K:
+        raise ValueError(f"{len(any_lost)} loss flags for {K} frames")
+    pcms = []
+    for k in range(K):
+        xd = x_directs if x_directs.dim() == 3 else x_directs[k]
+        pcm, state, plc_state = plan_synthesis_step_plc(
+            consts, plc_consts, state, plc_state, backings[k], xd, mats,
+            any_lost=any_lost[k], channels=channels, frame=frame,
+            n_streams=n_streams)
+        pcms.append(pcm)
+    return torch.stack(pcms), state, plc_state

@@ -1,58 +1,149 @@
-"""End-to-end batched CELT stream decoder in PyTorch (plan mode): port of
-mousiki_tpu/pipeline.py CeltStreamPipeline(use_plan=True).
+"""End-to-end batched stream decoders in PyTorch: port of the three decode
+pipelines of mousiki_tpu/pipeline.py, for one device.
 
-  S payloads --native symbol stage--> one packed int32 plan arena
-             --blocking host-to-device copy--> device step
-             (unpack + band plans + PLC + synthesis) --> (S, N, C) PCM
+  CeltStreamPipeline   S CELT payloads --native symbol stage--> one packed
+                       int32 plan arena --host-to-device copy--> device
+                       step (unpack + band plans + PLC + synthesis)
+                       --> (S, N, C) PCM. Also the non-plan path (the host
+                       reconstructs the bands, the device synthesises).
+  SilkStreamPipeline   S mono SILK payloads --native decoder--> pcm (or
+                       symbols) at 8/12/16 kHz --device (synthesis +)
+                       up-resampler--> (S, 48 * ms) PCM.
+  OpusStreamPipeline   S whole Opus packets of mixed SILK / CELT / hybrid
+                       20 ms frames --native TOC-routed stage--> plan
+                       arena + SILK pcm --one device step (CELT plan step,
+                       per-rate resamplers, sum)--> (S, 960, C) PCM.
 
-The host half is the port's own copy of the native C++ symbol decoder
-(`celt/host_native.py`, built with g++ from `csrc/celt_host.cpp` at first
-use); there is no Python-decoder fallback here.
+The host halves are the port's own copies of the native C++ decoders
+(`celt/host_native.py`, `silk/host_native.py`, `opus_host_native.py`,
+built with g++ from `csrc/` at first use); there is no pure-Python decoder
+fallback and no multi-device mesh here.
 """
 
 from __future__ import annotations
 
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import _device
+from .bitstream.packet import parse_packet
 from .celt import host_native
 from .celt.modes import MODE
-from .ops.band_exec import plan_combo_mats, plan_synthesis_step_plc
+from .ops.band_exec import (plan_combo_mats, plan_synthesis_scan,
+                            plan_synthesis_step_plc)
 from .ops.plc import init_plc_state, make_plc_consts
-from .ops.synthesis import init_state, make_consts
+from .ops.silk_resampler import init_up48_state, make_up48_plan, up48_step
+from .ops.silk_synthesis import (SilkFrameParams, init_silk_state,
+                                 silk_synthesis_step)
+from .ops.synthesis import FrameDesc, init_state, make_consts, synthesis_step
 
 # bench.py's serving plan profile: (leaf-tier slots, fills, fill pool)
 SERVING_PROFILE = ((144, 40, 6), 2, 8)
 
+_LOW_E = -28.0
+_SILK_RATES = (8, 12, 16)
+
 
 def set_plan_profile(tiers=None, fills=None, pool=None) -> None:
-    """Set the port's native host stage's plan capacities, process-wide
-    (every pipeline of the port; the JAX package's library keeps its
-    own). No arguments restore the full profile. A stream that
-    overflows a tier falls back to the exact direct decoder, so the
-    profile moves the arena size, not the output."""
+    """Set the port's native host stages' plan capacities, process-wide
+    (every pipeline and every loaded library of the port; the JAX
+    package's libraries keep their own). No arguments restore the full
+    profile. A stream that overflows a tier falls back to the exact
+    direct decoder, so the profile moves the arena size, not the output."""
     host_native.set_plan_profile(tiers, fills, pool)
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "the port decodes on one device: the mesh path of the "
+            "reference is not ported (pass mesh=None)")
+
+
+class _HostStaging:
+    """Host-to-device copies of buffers that the native decoders reuse in
+    place.
+
+    On a GPU the plan arenas live in page-locked memory, allocated once
+    (`alloc`), so `arena_to_device` is asynchronous; it records an event,
+    and `wait` holds the host until that copy is done, which every caller
+    does before the native decoder writes an arena again. Other arrays go
+    through `to_device`, a copy that has read its source when it returns.
+    On the CPU both are real copies, never aliases of the reused buffer.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._event = None
+
+    def alloc(self, shape) -> np.ndarray:
+        if self.cuda:
+            return torch.zeros(shape, dtype=torch.int32,
+                               pin_memory=True).numpy()
+        return np.zeros(shape, np.int32)
+
+    def arena_to_device(self, arena: np.ndarray) -> torch.Tensor:
+        src = torch.from_numpy(arena)
+        if not self.cuda:
+            return src.clone()
+        with record_function("host.h2d"):
+            out = src.to(self.device, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(self.device))
+        return out
+
+    def wait(self) -> None:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+
+    def to_device(self, array: np.ndarray) -> torch.Tensor:
+        src = torch.from_numpy(array)
+        return src.to(self.device) if self.cuda else src.clone()
+
+    def finish(self, pcm: torch.Tensor) -> torch.Tensor:
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        return pcm
 
 
 class CeltStreamPipeline:
     """Decode S parallel CELT streams, one 48 kHz frame per step.
 
-    Plan mode only: the native host decodes symbols into packed band
-    plans; band reconstruction, concealment of lost packets and synthesis
-    run on `device`. A payload of None marks that stream's packet lost.
+    use_plan=True (the serving path): the native host decodes only
+    symbols, emitting packed band plans; band reconstruction, concealment
+    of lost packets (a payload of None) and synthesis run on `device`.
+    use_plan=False: the native host reconstructs the bands too and the
+    device runs the synthesis alone; that path conceals no loss.
+
+    host_threads: worker threads of the native batch call (0 = one per
+    hardware thread). Set `overlap_host = True` to have `decode_stream`
+    decode frame k+1 on a worker thread while frame k is copied and
+    launched.
     """
 
     def __init__(self, n_streams: int, channels: int = 2,
-                 use_plan: bool = True, *, device):
-        if not use_plan:
-            raise ValueError("only plan mode is ported (use_plan=True)")
+                 use_plan: bool = True, *, device, host_threads: int = 0,
+                 use_native: bool | None = None, mesh=None):
+        _no_mesh(mesh)
+        if use_native is False:
+            raise NotImplementedError(
+                "the pure-Python CeltDecoder host is not ported; the port "
+                "decodes symbols with its native library only")
         self.S = n_streams
         self.channels = channels
-        self.use_plan = True
+        self.use_plan = use_plan
+        self.overlap_host = False
         self.device = _device.as_device(device)
+        self._h2d = _HostStaging(self.device)
         self._native = host_native.NativeCeltHostBatch(
-            n_streams, channels=channels, disable_inv=channels == 1)
+            n_streams, channels=channels, disable_inv=channels == 1,
+            n_threads=host_threads, arena_alloc=self._h2d.alloc)
         self.state = init_state(n_streams, channels, self.device)
         self.plc_state = init_plc_state(n_streams, channels, self.device)
         # per-frame-size constants (LM 0-3) and the all-zero x_direct,
@@ -86,40 +177,66 @@ class CeltStreamPipeline:
         return pcm, new_state
 
     # ------------------------------------------------------------------
-    def _host_decode_plan(self, payloads: list, frame_size: int,
-                          to_device: bool = True):
-        """Plan-mode host stage: one packed arena (+ x_direct when some
-        stream fell back to the direct decoder). to_device=False returns
-        the host-side tuple for a later _plan_args_to_device call."""
-        arenas, aux, layout = self._native.decode_plan_arenas(payloads,
-                                                              frame_size)
+    def _host_decode(self, payloads: list, frame_size: int) -> FrameDesc:
+        """Non-plan host stage: dense band shapes and descriptors, on the
+        device. The native batch allocates fresh outputs every call."""
+        with record_function("host.celt_decode"):
+            x, ble2, iflags, pf_gains, rcs = self._native.decode(
+                payloads, frame_size)
+        if np.any(rcs < 0):
+            bad = int(np.argmax(rcs < 0))
+            raise ValueError(
+                f"stream {bad}: native celt decode failed rc={rcs[bad]}")
+        ble_pad = np.full((self.S, self.channels, 22), _LOW_E, np.float32)
+        ble_pad[:, :, :21] = ble2[:, :self.channels, :]
+        to_dev = self._h2d.to_device
+        return FrameDesc(
+            x=to_dev(x), band_log_e=to_dev(ble_pad),
+            transient=to_dev(iflags[:, 0] != 0),
+            silence=to_dev(iflags[:, 1] != 0),
+            pf_pitch=to_dev(np.ascontiguousarray(iflags[:, 2])),
+            pf_gain=to_dev(pf_gains.astype(np.float32)),
+            pf_tapset=to_dev(np.ascontiguousarray(iflags[:, 3])))
+
+    def _decode_plan_host(self, payloads: list, frame_size: int):
+        """The pure-CPU part of the plan host stage (safe on a worker
+        thread: the C call releases the GIL). Returns the host-side tuple
+        for _plan_args_to_device."""
+        with record_function("host.celt_decode"):
+            arenas, aux, layout = self._native.decode_plan_arenas(
+                payloads, frame_size)
         rcs = aux["rcs"]
         if np.any(rcs < 0):
             bad = int(np.argmax(rcs < 0))
             raise ValueError(
                 f"stream {bad}: native celt plan decode failed rc={rcs[bad]}")
-        name, off, shape = layout["direct"]
-        any_direct = bool(arenas[name][off:off + shape[0]].any())
+        any_direct = bool(
+            host_native.plane_of(arenas, layout, "direct").any())
         # the lost mask rides the arena (lost8 plane); this host copy only
         # decides whether the concealment runs at all
-        name, off, shape = layout["lost8"]
-        any_lost = bool(arenas[name][off:off + shape[0]].any())
-        host = (arenas, aux, any_direct, any_lost)
+        any_lost = bool(host_native.plane_of(arenas, layout, "lost8").any())
+        return arenas, aux, any_direct, any_lost
+
+    def _host_decode_plan(self, payloads: list, frame_size: int,
+                          to_device: bool = True):
+        """Plan-mode host stage: one packed arena (+ x_direct when some
+        stream fell back to the direct decoder). to_device=False returns
+        the host-side tuple for a later _plan_args_to_device call."""
+        # the native decoder reuses its arena in place: the copy of the
+        # arena's last contents must be done before it writes again
+        self._h2d.wait()
+        host = self._decode_plan_host(payloads, frame_size)
         if not to_device:
             return host
         return self._plan_args_to_device(host, frame_size)
 
     def _plan_args_to_device(self, host, frame_size: int):
-        """Host-to-device half of the plan stage. The copies are blocking:
-        the native decoder reuses its arena in place, so the copy must be
-        done before the next native decode (and on the CPU it must be a
-        copy, not an alias)."""
+        """Host-to-device half of the plan stage."""
         arenas, aux, any_direct, any_lost = host
         self._frame_consts(frame_size)
-        backing = torch.from_numpy(arenas["backing"]).to(self.device,
-                                                         copy=True)
+        backing = self._h2d.arena_to_device(arenas["backing"])
         if any_direct:
-            xd = torch.from_numpy(aux["x_direct"]).to(self.device, copy=True)
+            xd = self._h2d.to_device(aux["x_direct"])
         else:
             xd = self._xd_zeros[frame_size]
         return backing, xd, any_lost
@@ -127,35 +244,549 @@ class CeltStreamPipeline:
     def step(self, payloads: list, frame_size: int = 960):
         """Decode one frame for every stream.
 
-        payloads: S CELT payload byte strings (None = lost packet).
-        Returns a tensor (S, frame_size, channels) on the pipeline's
-        device, float32 in [-1, 1]."""
-        args = self._host_decode_plan(payloads, frame_size)
-        pcm, self.state = self._plan_step(frame_size, self.state, *args)
+        payloads: S CELT payload byte strings (None = lost packet, plan
+        mode only). Returns a tensor (S, frame_size, channels) on the
+        pipeline's device, float32 in [-1, 1]."""
+        if self.use_plan:
+            args = self._host_decode_plan(payloads, frame_size)
+            pcm, self.state = self._plan_step(frame_size, self.state, *args)
+            return pcm
+        desc = self._host_decode(payloads, frame_size)
+        consts, _, _ = self._frame_consts(frame_size)
+        pcm, self.state = synthesis_step(consts, self.state, desc,
+                                         n=frame_size)
         return pcm
 
-    def _finish(self, pcm):
-        if pcm.device.type == "cuda":
-            torch.cuda.synchronize(pcm.device)
-        return pcm
-
-    def decode_stream(self, frames_iter, frame_size: int = 960):
+    def decode_stream(self, frames_iter, frame_size: int = 960,
+                      chunk: int = 1):
         """Generator over frames of S payloads: the native decode of frame
         k+1 runs on the host while the device works on frame k (launches
-        are asynchronous); each yielded tensor is finished."""
-        self._native.set_plan_buffers(1)
+        are asynchronous); each yielded tensor is finished.
+
+        Plan mode decodes frame k+1 into the single reused arena after
+        frame k's launches (the default), or, with `overlap_host` set, on
+        a worker thread into the other arena of a ring of two while the
+        main thread copies and launches frame k.
+
+        chunk > 1 (plan mode): decode `chunk` frames per device dispatch
+        through the scanned step: one stacked-arena copy per chunk, at the
+        price of chunk * 20 ms of added latency. Yields (S, frame, C)
+        results one frame at a time, exactly as chunk=1 does.
+        """
         it = iter(frames_iter)
+        if chunk > 1:
+            if not self.use_plan:
+                raise ValueError("chunked decode needs plan mode")
+            return self._decode_stream_chunked(it, frame_size, chunk)
+        if not self.use_plan:
+            return self._decode_stream_descs(it, frame_size)
+        return self._decode_stream_plan(it, frame_size, self.overlap_host)
+
+    def _decode_stream_plan(self, it, frame_size: int, threaded: bool):
+        self._native.set_plan_buffers(2 if threaded else 1)
         try:
-            host = self._host_decode_plan(next(it), frame_size,
-                                          to_device=False)
+            first = next(it)
         except StopIteration:
             return
-        for payloads in it:
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            host = self._host_decode_plan(first, frame_size, to_device=False)
+            for payloads in it:
+                if threaded:
+                    # frame k+1 goes into the arena frame k-1 used: its
+                    # copy is done before the worker may write there
+                    self._h2d.wait()
+                    fut = pool.submit(self._decode_plan_host, payloads,
+                                      frame_size)
+                args = self._plan_args_to_device(host, frame_size)
+                out, self.state = self._plan_step(frame_size, self.state,
+                                                  *args)
+                if threaded:
+                    host = fut.result()
+                else:
+                    host = self._host_decode_plan(payloads, frame_size,
+                                                  to_device=False)
+                yield self._h2d.finish(out)
             args = self._plan_args_to_device(host, frame_size)
             out, self.state = self._plan_step(frame_size, self.state, *args)
-            host = self._host_decode_plan(payloads, frame_size,
-                                          to_device=False)
-            yield self._finish(out)
-        args = self._plan_args_to_device(host, frame_size)
-        out, self.state = self._plan_step(frame_size, self.state, *args)
-        yield self._finish(out)
+            yield self._h2d.finish(out)
+
+    def _decode_stream_descs(self, it, frame_size: int):
+        consts, _, _ = self._frame_consts(frame_size)
+        pending = None
+        for payloads in it:
+            desc = self._host_decode(payloads, frame_size)
+            if pending is not None:
+                yield self._h2d.finish(pending)
+            pending, self.state = synthesis_step(consts, self.state, desc,
+                                                 n=frame_size)
+        if pending is not None:
+            yield self._h2d.finish(pending)
+
+    def _decode_stream_chunked(self, it, frame_size: int, chunk: int):
+        """Dispatch chunk i, then run the native decode of chunk i+1 while
+        the device finishes i."""
+        def next_batch():
+            batch = []
+            for payloads in it:
+                batch.append(payloads)
+                if len(batch) >= chunk:
+                    break
+            return batch
+
+        batch = next_batch()
+        if not batch:
+            return
+        host = self._host_decode_chunk(batch, frame_size)
+        while True:
+            pcm = self._dispatch_chunk(host, frame_size)
+            batch = next_batch() if len(batch) == chunk else []
+            if batch:
+                host = self._host_decode_chunk(batch, frame_size)
+            self._h2d.finish(pcm)
+            yield from pcm
+            if not batch:
+                return
+
+    def decode_frames_scanned(self, frames: list, frame_size: int = 960):
+        """Decode a whole list of frames (each: S payloads) with one
+        stacked-arena copy and the scanned step. Returns a
+        (K, S, frame, channels) tensor on the device; plan mode only."""
+        host = self._host_decode_chunk(frames, frame_size)
+        return self._dispatch_chunk(host, frame_size)
+
+    def _host_decode_chunk(self, frames: list, frame_size: int):
+        """Pure-CPU half of the scanned chunk decode (native symbol stage
+        into the contiguous (K, words) backing)."""
+        if not self.use_plan:
+            raise ValueError("the scanned decode needs plan mode")
+        if not frames:
+            raise ValueError("decode_frames_scanned needs >= 1 frame batch")
+        self._h2d.wait()
+        with record_function("host.celt_decode"):
+            backing2d, aux_list, any_direct, any_lost = \
+                self._native.decode_plan_chunk(frames, frame_size)
+        # NB: the native decoder has already advanced through ALL K frames
+        # before this check runs, so a raise here leaves the native stream
+        # states desynced for the whole chunk (the per-frame `step` path
+        # raises immediately instead). Callers that must survive malformed
+        # packets use step().
+        for k, aux in enumerate(aux_list):
+            rcs = aux["rcs"]
+            if np.any(rcs < 0):
+                bad = int(np.argmax(rcs < 0))
+                raise ValueError(f"chunk frame {k} stream {bad}: native "
+                                 f"celt plan decode failed rc={rcs[bad]}")
+        return backing2d, aux_list, any_direct, any_lost
+
+    def _dispatch_chunk(self, host, frame_size: int):
+        """Device half: copy the stacked arenas and run the scanned step.
+        The returned (K, S, frame, C) tensor is not synchronised."""
+        backing2d, aux_list, any_direct, any_lost = host
+        consts, plc_consts, mats = self._frame_consts(frame_size)
+        if any_direct:
+            xd = self._h2d.to_device(np.stack(
+                [aux["x_direct"] for aux in aux_list]))
+        else:
+            xd = self._xd_zeros[frame_size]
+        pcm, self.state, self.plc_state = plan_synthesis_scan(
+            consts, plc_consts, self.state, self.plc_state,
+            self._h2d.arena_to_device(backing2d), xd, mats,
+            any_lost=any_lost, channels=self.channels, frame=frame_size,
+            n_streams=self.S)
+        return pcm
+
+
+class SilkStreamPipeline:
+    """Decode S parallel mono SILK streams with the batched device
+    8/12/16 kHz -> 48 kHz up-resampler on the back. Two placements of the
+    synthesis:
+
+    * ``synthesis="host"``: the native host decodes symbols and
+      synthesises (int16-exact); only the resampler runs on the device.
+    * ``synthesis="device"``: the native host decodes SYMBOLS only (side
+      info + excitation) and the LTP/LPC core runs as the batched
+      ops/silk_synthesis.py step before the resampler; out_hist/lpc_hist
+      live on the device. Float-level PCM against the bit-exact host.
+      Lossless 20 ms batches (the host concealment needs synthesised PCM).
+    """
+
+    def __init__(self, n_streams: int, fs_khz: int = 16, frame_ms: int = 20,
+                 synthesis: str = "host", *, device):
+        from .silk import host_native as silk_native
+
+        if fs_khz not in _SILK_RATES:
+            raise ValueError("SILK internal rate must be 8/12/16 kHz")
+        if synthesis not in ("host", "device"):
+            raise ValueError("synthesis must be 'host' or 'device'")
+        if synthesis == "device" and frame_ms != 20:
+            raise ValueError("device synthesis: 20 ms frames only")
+        self.S = n_streams
+        self.fs_khz = fs_khz
+        self.frame_ms = frame_ms
+        self.synthesis = synthesis
+        self.device = _device.as_device(device)
+        self._h2d = _HostStaging(self.device)
+        self.hosts = [silk_native.NativeSilkHost() for _ in range(n_streams)]
+        self._plan = make_up48_plan(fs_khz * frame_ms, fs_khz, self.device)
+        self._rs_state = init_up48_state(n_streams, self.device)
+        if synthesis == "device":
+            self._silk_state = init_silk_state(n_streams, fs_khz,
+                                               self.device)
+
+    def _resample(self, x):
+        with record_function("silk.resample"):
+            out, self._rs_state = up48_step(x, self._rs_state, self._plan)
+            return out / 32768.0
+
+    def _step_device(self, payloads: list):
+        L = self.fs_khz * self.frame_ms
+        S = self.S
+        exc = np.empty((S, L), np.float32)
+        a = np.empty((S, 2, 16), np.float32)
+        b = np.empty((S, 4, 5), np.float32)
+        pitch = np.empty((S, 4), np.int32)
+        gains = np.empty((S, 4), np.float32)
+        voiced = np.empty(S, bool)
+        interp = np.empty(S, bool)
+        ltp_scale = np.empty(S, np.float32)
+        with record_function("host.silk_decode"):
+            for s, payload in enumerate(payloads):
+                d = self.hosts[s].decode_symbols(payload, self.fs_khz)
+                exc[s] = d["exc"]
+                a[s] = d["a"]
+                b[s] = d["b"]
+                pitch[s] = d["pitch_l"]
+                gains[s] = d["gains"]
+                voiced[s] = d["voiced"]
+                interp[s] = d["interp"]
+                ltp_scale[s] = d["ltp_scale"]
+        params = SilkFrameParams(*(self._h2d.to_device(v) for v in (
+            exc, a, b, pitch, gains, voiced, ltp_scale, interp)))
+        with record_function("silk.synthesis"):
+            xq, self._silk_state = silk_synthesis_step(
+                params, self._silk_state, nb_subfr=4,
+                subfr_len=self.fs_khz * self.frame_ms // 4)
+        return self._resample(xq)
+
+    def step(self, payloads: list):
+        """payloads: S SILK payload byte strings -> (S, 48 * frame_ms)
+        float32 tensor on the pipeline's device."""
+        if len(payloads) != self.S:
+            raise ValueError(f"{len(payloads)} payloads for {self.S} streams")
+        if self.synthesis == "device":
+            return self._step_device(payloads)
+        x = np.empty((self.S, self.fs_khz * self.frame_ms), np.float32)
+        with record_function("host.silk_decode"):
+            for s, payload in enumerate(payloads):
+                x[s] = self.hosts[s].decode(payload, self.fs_khz,
+                                            self.frame_ms)
+        return self._resample(self._h2d.to_device(x))
+
+
+def _masked(mask, new, old):
+    """Per field of a state tuple: rows where `mask` holds take `new`,
+    the others keep `old`."""
+    return type(old)(*(
+        torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+        for a, b in zip(new, old)))
+
+
+class OpusStreamPipeline:
+    """Decode S parallel Opus streams of mixed SILK / CELT / hybrid 20 ms
+    packets, one frame per step, batched on one device.
+
+    The native unified host (opus_host_native) routes each packet by TOC:
+    CELT frames emit packed band plans, SILK frames decode to pcm at
+    their internal rate, hybrid frames run SILK then resume the same
+    range decoder into the CELT plan decode. One device step then runs
+    the CELT band reconstruction + synthesis, the batched up-resamplers
+    (one per SILK rate, selected per stream by mask), and sums the two
+    paths: the per-stream mode needs no mask of its own because inactive
+    components carry all-zero inputs.
+
+    Scope: 20 ms steps (the push/tick feeder splits multi-frame and
+    10/40/60 ms SILK packets); streams keep a consistent mode (no
+    per-stream mode switching with transition smoothing). Mono pipelines
+    take NB/MB/WB SILK, hybrid and mono CELT; stereo pipelines take
+    stereo CELT, stereo SILK, stereo hybrid, mono hybrid and mono SILK
+    (duplicated to both channels).
+
+    silk_synthesis="device" (mono): WB SILK streams carry their frame
+    parameters on the wire and the LTP/LPC core runs on the device
+    (ops/silk_synthesis.py); such streams must be lossless.
+    """
+
+    def __init__(self, n_streams: int, host_threads: int = 0,
+                 channels: int = 1, mesh=None,
+                 silk_synthesis: str = "host", *, device):
+        from .opus_host_native import NativeOpusHostBatch
+
+        _no_mesh(mesh)
+        if silk_synthesis not in ("host", "device"):
+            raise ValueError("silk_synthesis must be 'host' or 'device'")
+        if silk_synthesis == "device" and channels != 1:
+            raise ValueError("device SILK synthesis: mono pipelines only")
+        self.S = n_streams
+        self.channels = channels
+        self.device = dev = _device.as_device(device)
+        self._h2d = _HostStaging(dev)
+        self._silk_device = silk_synthesis == "device"
+        self._native = NativeOpusHostBatch(n_streams, channels, host_threads,
+                                           arena_alloc=self._h2d.alloc)
+        self._consts = make_consts(960, dev)
+        self._plc_consts = make_plc_consts(960, MODE.window, dev)
+        self._mats = plan_combo_mats(channels, 960, dev)
+        self.state = init_state(n_streams, channels, dev)
+        self.plc_state = init_plc_state(n_streams, channels, dev)
+        # one up-resampler plan per SILK internal rate; a stream's rate
+        # selects its output (and which state advances) by mask. Stereo
+        # pipelines resample each SILK channel on its own (stereo SILK
+        # decodes natively to L/R planes): one row per (stream, channel)
+        self._rows = n_streams * channels
+        self.rs_states = {r: init_up48_state(self._rows, dev)
+                          for r in _SILK_RATES}
+        self._plans = {r: make_up48_plan(20 * r, r, dev)
+                       for r in _SILK_RATES}
+        self.silk_prev = torch.zeros((self._rows,), dtype=torch.float32,
+                                     device=dev)
+        self.prev_fs = torch.full((n_streams,), 16, dtype=torch.int32,
+                                  device=dev)
+        self._xd_zeros = torch.zeros((n_streams, channels, 960),
+                                     dtype=torch.float32, device=dev)
+        self.silk_dev_state = None
+        if self._silk_device:
+            self.silk_dev_state = init_silk_state(n_streams, 16, dev)
+            self._last_real_mode = np.zeros(n_streams, np.int32)
+        self.last_modes = None
+        self._queues = None  # feeder mode (push/tick), built on first push
+
+    # ------------------------------------------------------------------
+    def _silk_lane(self, silk16, sf, si, dev_mask):
+        """Device-SILK lane: the streams of `dev_mask` carry
+        SilkFrameParams on the wire instead of host-synthesised pcm; the
+        LTP/LPC core runs here and its output replaces those streams'
+        silk16 rows. Masked-out streams run on stale-but-valid parameters
+        and are discarded; only the lane's streams advance their state."""
+        S = sf.shape[0]
+        params = SilkFrameParams(
+            exc=sf[:, :320],
+            a=sf[:, 320:352].reshape(S, 2, 16),
+            b=sf[:, 352:372].reshape(S, 4, 5),
+            pitch_l=torch.clamp(si[:, :4], min=18),
+            gains=sf[:, 372:376],
+            voiced=si[:, 4] != 0,
+            ltp_scale=sf[:, 376],
+            interp=si[:, 5] != 0)
+        xq, new_state = silk_synthesis_step(params, self.silk_dev_state,
+                                            nb_subfr=4, subfr_len=80)
+        self.silk_dev_state = _masked(dev_mask, new_state,
+                                      self.silk_dev_state)
+        return torch.where(dev_mask[:, None], xq, silk16)
+
+    def _resample(self, xs, silk_fs, sdel):
+        """The per-rate masked up-resamplers: (rows, 320) SILK pcm at each
+        row's rate -> (rows, 960) at 48 kHz.
+
+        The SILK decode API feeds its resampler through a 1-sample delay
+        (the stereo-prediction tail), mirrored here for exact alignment.
+        Stereo-SILK rows (sdel) are already delayed: the native MS->LR
+        unmix bakes the delay into its output window. A stream whose rate
+        switched starts that rate's filter from zero state."""
+        ch = self.channels
+        fs_rows = silk_fs.repeat_interleave(ch)
+        pfs_rows = self.prev_fs.repeat_interleave(ch)
+        sdel_rows = sdel.repeat_interleave(ch)
+        up = torch.zeros((xs.shape[0], 960), dtype=torch.float32,
+                         device=xs.device)
+        new_prev = torch.zeros_like(self.silk_prev)
+        zero = torch.zeros((), dtype=torch.float32, device=xs.device)
+        for r in _SILK_RATES:
+            L = 20 * r
+            on = fs_rows == r
+            switched = on & (pfs_rows != r)
+            old = self.rs_states[r]
+            st_r = type(old)(*(
+                torch.where(switched[:, None], zero, z) for z in old))
+            x_mono = torch.cat([self.silk_prev[:, None], xs[:, :L - 1]],
+                               dim=1)
+            x = torch.where(sdel_rows[:, None], xs[:, :L], x_mono)
+            up_r, rs_r = up48_step(x, st_r, self._plans[r])
+            up = torch.where(on[:, None], up_r, up)
+            self.rs_states[r] = _masked(on, rs_r, old)
+            new_prev = torch.where(on, xs[:, L - 1], new_prev)
+        self.silk_prev = new_prev
+        self.prev_fs = silk_fs
+        return up
+
+    def _step_core(self, backing, xd, any_lost, silk16, silk_fs, sdel,
+                   sf=None, si=None, dev_mask=None):
+        """The device step: CELT plan step with concealment, the
+        device-SILK lane (silk_synthesis="device"), the three per-rate
+        resamplers and the sum."""
+        S = self.S
+        pcm, self.state, self.plc_state = plan_synthesis_step_plc(
+            self._consts, self._plc_consts, self.state, self.plc_state,
+            backing, xd, self._mats, any_lost=any_lost,
+            channels=self.channels, frame=960, n_streams=S)
+        xs = silk16.to(torch.float32)                      # (rows, 320)
+        if sf is not None:
+            with record_function("silk.synthesis"):
+                xs = self._silk_lane(xs, sf, si, dev_mask)
+        with record_function("silk.resample"):
+            up = self._resample(xs, silk_fs, sdel)
+        with record_function("mixed.sum"):
+            if self.channels == 2:
+                upc = up.reshape(S, 2, 960).transpose(1, 2)
+            else:
+                upc = up[:, :, None]
+            return pcm + upc * (1.0 / 32768.0)
+
+    # ------------------------------------------------------------------
+    def push(self, s: int, packet: bytes | None) -> None:
+        """Feeder mode: queue one packet (or None = one lost 20 ms tick)
+        for stream s, then call tick() to decode 20 ms for all streams.
+
+        Accepts multi-frame packets (codes 1-3) and 10/40/60 ms SILK
+        frames: CELT and hybrid frames are 20 ms each and re-wrapped as
+        code-0 packets; 40/60 ms SILK frames decode natively in one call
+        at tick time and feed 20 ms chunks; 10 ms SILK frames pair up per
+        tick (an unpaired half zero-pads its second 10 ms). 2.5-10 ms
+        CELT and 10 ms hybrid frames are refused (the device step is
+        fixed at 960 samples)."""
+        if self._queues is None:
+            self._queues = [deque() for _ in range(self.S)]
+        q = self._queues[s]
+        if packet is None:
+            q.append(None)
+            return
+        toc = packet[0]
+        config = toc >> 3
+        frames = parse_packet(packet).frames
+        toc0 = bytes([toc & 0xFC])  # same config + stereo bit, code 0
+        if config >= 16:  # CELT: (config & 3) = 2.5/5/10/20 ms
+            if (config & 3) != 3:
+                raise ValueError("feeder supports 20 ms CELT frames only")
+            q.extend(("f", toc0 + f) for f in frames)
+        elif config >= 12:  # hybrid: 10/20 ms
+            if (config & 1) != 1:
+                raise ValueError("feeder supports 20 ms hybrid frames only")
+            q.extend(("f", toc0 + f) for f in frames)
+        else:  # SILK: 10/20/40/60 ms
+            dur = (10, 20, 40, 60)[config & 3]
+            fs = 8 if config < 4 else (12 if config < 8 else 16)
+            if dur == 10:
+                # half-tick frames: paired up at tick time (a steady
+                # 10 ms stream delivers two packets per 20 ms tick)
+                q.extend(("h", f, fs) for f in frames)
+            elif dur == 20:
+                q.extend(("f", toc0 + f) for f in frames)
+            else:
+                q.extend(("m", f, fs, dur) for f in frames)
+
+    def tick(self):
+        """Feeder mode: decode the next 20 ms for every stream from its
+        queue (an empty queue underruns as a lost tick and is concealed).
+        Returns a tensor (S, 960, channels) float32 on the device."""
+        from .opus_host_native import SKIP
+
+        if self._queues is None:
+            raise ValueError("push() packets before tick()")
+        packets = [None] * self.S
+        fills = {}
+        for s in range(self.S):
+            q = self._queues[s]
+            item = q.popleft() if q else None
+            if item is None:
+                continue
+            if item[0] == "f":
+                packets[s] = item[1]
+                continue
+            if item[0] == "h":  # 10 ms SILK half-tick frames, paired
+                _, pay, fs = item
+                half1 = self._native.decode_silk_frames(s, pay, fs, 10)
+                if q and q[0] is not None and q[0][0] == "h" \
+                        and q[0][2] == fs:
+                    _, pay2, _ = q.popleft()
+                    half2 = self._native.decode_silk_frames(s, pay2, fs, 10)
+                else:
+                    half2 = np.zeros(10 * fs, np.int16)  # half underrun
+                chunk = np.concatenate([half1, half2])
+            elif item[0] == "m":  # head of a 40/60 ms SILK frame
+                _, pay, fs, dur = item
+                pcm = self._native.decode_silk_frames(s, pay, fs, dur)
+                L = 20 * fs
+                for k in range(dur // 20 - 1, 0, -1):
+                    q.appendleft(("pcm", pcm[k * L:(k + 1) * L], fs))
+                chunk = pcm[:L]
+            else:  # buffered 20 ms chunk
+                _, chunk, fs = item
+            fills[s] = (chunk, fs)
+            packets[s] = SKIP
+        return self.step(packets, 960, _fills=fills)
+
+    def step(self, packets: list, frame_size: int = 960,
+             fec_packets: list | None = None, _fills: dict | None = None):
+        """packets: S whole Opus packets (one 20 ms frame each); None
+        entries are lost frames. fec_packets (optional): per lost stream,
+        the NEXT packet, whose in-band LBRR replaces the loss when
+        present (SILK/hybrid); otherwise the loss is concealed. Returns a
+        tensor (S, 960, channels) float32 on the pipeline's device."""
+        if frame_size != 960:
+            # the native opus host plan path hard-codes 20 ms plane
+            # offsets; any other frame size would corrupt the arena layout
+            raise ValueError("OpusStreamPipeline supports 20 ms (960-sample) "
+                             f"frames only, got {frame_size}")
+        self._h2d.wait()
+        with record_function("host.opus_decode"):
+            out = self._native.decode(packets, frame_size, fec_packets,
+                                      silk_params=self._silk_device)
+        arenas, aux, layout, silk16, modes, silk_fs, silk_stereo = out[:7]
+        if self._silk_device:
+            # loss scope guard: device-SILK streams keep their synthesis
+            # state on the device, so the host concealment has no pcm
+            # history for them
+            concealed = np.isin(modes, (3, 4))
+            bad = concealed & (self._last_real_mode == 5)
+            if bad.any():
+                raise ValueError(
+                    "silk_synthesis='device' serves lossless SILK "
+                    f"streams; stream {int(np.argmax(bad))} lost a frame "
+                    "(use the default host synthesis for lossy SILK)")
+            self._last_real_mode = np.where(concealed,
+                                            self._last_real_mode, modes)
+        if _fills:
+            for s, (chunk, fs) in _fills.items():
+                silk16[s, :len(chunk)] = chunk
+                if self.channels == 2:  # duplicate the mono chunk
+                    silk16[s, 320:320 + len(chunk)] = chunk
+                silk_fs[s] = fs
+        rcs = aux["rcs"]
+        if np.any(rcs < 0):
+            bad = int(np.argmax(rcs < 0))
+            raise ValueError(f"stream {bad}: native opus host decode "
+                             f"failed rc={rcs[bad]}")
+        self.last_modes = modes
+        # device CELT concealment only for concealed streams (rc 1), not
+        # for FEC-recovered ones (rc 2: the LBRR frame replaces the loss);
+        # the mask rides the arena copy (lost8 plane) and its host copy
+        # gates the concealment
+        lost = rcs == 1
+        host_native.plane_of(arenas, layout, "lost8")[:] = lost
+        any_direct = bool(
+            host_native.plane_of(arenas, layout, "direct").any())
+        to_dev = self._h2d.to_device
+        xd = to_dev(aux["x_direct"]) if any_direct else self._xd_zeros
+        lane = {}
+        if self._silk_device:
+            lane = dict(sf=to_dev(out[7][0]), si=to_dev(out[7][1]),
+                        dev_mask=to_dev(modes == 5))
+        return self._step_core(
+            self._h2d.arena_to_device(arenas["backing"]), xd,
+            bool(lost.any()), to_dev(silk16.reshape(self._rows, 320)),
+            to_dev(silk_fs), to_dev(silk_stereo != 0), **lane)
+
+    def decode_stream(self, frames_iter, frame_size: int = 960):
+        """Generator over frames of S packets; each yielded tensor is
+        finished."""
+        for packets in frames_iter:
+            yield self._h2d.finish(self.step(packets, frame_size))

@@ -20,6 +20,7 @@ from mousiki_tpu.celt import host_native
 from mousiki_tpu.ops import band_exec_jax
 from mousiki_tpu_torch.ops import band_exec
 from mousiki_tpu_torch.pipeline import SERVING_PROFILE, set_plan_profile
+from torch_threads import one_torch_thread  # noqa: F401
 
 S = 3
 FRAME = 960

@@ -1,10 +1,14 @@
-"""The port's CeltStreamPipeline (plan mode) end to end on the CPU:
-against the committed golden PCM, against the JAX plan pipeline under
-packet loss, and continuing a JAX pipeline's decode mid-stream.
+"""The port's CeltStreamPipeline end to end on the CPU: against the
+committed golden PCM, against the JAX plan pipeline under packet loss,
+continuing a JAX pipeline's decode mid-stream, and its other modes (host
+overlap, chunks, the scanned decode, the non-plan path) against its own
+stepped plan output.
 
 Bars: 1e-5 to the golden PCM (the JAX pipeline reaches 5.1e-7 there);
 against the JAX pipeline 5e-3 on lost and just-recovered frames and 2e-4
-elsewhere, the bars of test_pipeline.py's packet-loss test.
+elsewhere, the bars of test_pipeline.py's packet-loss test; overlapped,
+chunked and scanned output equal to stepped output exactly; the non-plan
+path within 2e-4 of plan mode and 1e-5 of the JAX non-plan pipeline.
 """
 
 
@@ -19,6 +23,7 @@ from mousiki_tpu.pipeline import CeltStreamPipeline as JaxPipeline
 from mousiki_tpu_torch import convert
 from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
                                         set_plan_profile)
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN_TOL = 1e-5
 
@@ -141,3 +146,102 @@ def test_short_frames_match_jax():
         for s in range(S):
             err = np.abs(got[s] - want[s]).max()
             assert err < _tol(lost, s, f), (f, s, err)
+
+
+def _stepped(streams, S, F, lost):
+    pipe = CeltStreamPipeline(S, device="cpu")
+    return [pipe.step(frame_batch(streams, S, f, lost[:, f]))
+            for f in range(F)]
+
+
+@pytest.mark.parametrize("mode", ["overlap_host", "chunk4", "chunk3",
+                                  "scanned"])
+def test_stream_modes_equal_stepped_output(serving, mode):
+    """The threaded overlap (two arenas), the chunked stream (10 frames in
+    chunks of 4 or 3, so the last chunk is short) and the scanned decode
+    give the stepped output exactly, with lost packets among the frames."""
+    S, F = 3, 10
+    lost = _loss_pattern(S, F, seed=3)
+    want = _stepped(serving, S, F, lost)
+    frames = [frame_batch(serving, S, f, lost[:, f]) for f in range(F)]
+    pipe = CeltStreamPipeline(S, device="cpu", host_threads=2)
+    if mode == "scanned":
+        got = pipe.decode_frames_scanned(frames)
+        assert got.shape == (F, S, 960, 2)
+    elif mode == "overlap_host":
+        pipe.overlap_host = True
+        got = list(pipe.decode_stream(iter(frames)))
+        ring = pipe._native._plan_db[960][1]
+        assert len(ring) == 2
+        assert ring[0][0]["backing"] is not ring[1][0]["backing"]
+    else:
+        got = list(pipe.decode_stream(iter(frames), chunk=int(mode[-1])))
+    assert len(got) == F
+    for f in range(F):
+        assert torch.equal(got[f], want[f]), (mode, f)
+    # the streams go on from the same state as the stepped pipeline's
+    more = frame_batch(serving, S, 10)
+    stepped = CeltStreamPipeline(S, device="cpu")
+    for f in range(F):
+        stepped.step(frame_batch(serving, S, f, lost[:, f]))
+    assert torch.equal(pipe.step(more), stepped.step(more))
+
+
+def test_empty_streams_and_chunk_arguments(serving):
+    pipe = CeltStreamPipeline(3, device="cpu")
+    assert list(pipe.decode_stream(iter([]))) == []
+    assert list(pipe.decode_stream(iter([]), chunk=4)) == []
+    with pytest.raises(ValueError, match=">= 1 frame"):
+        pipe.decode_frames_scanned([])
+    nonplan = CeltStreamPipeline(3, use_plan=False, device="cpu")
+    with pytest.raises(ValueError, match="plan mode"):
+        list(nonplan.decode_stream(iter([frame_batch(serving, 3, 0)]),
+                                   chunk=2))
+    with pytest.raises(ValueError, match="no loss concealment"):
+        nonplan.step([None] + frame_batch(serving, 3, 0)[1:])
+    with pytest.raises(NotImplementedError, match="CeltDecoder"):
+        CeltStreamPipeline(3, use_native=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        CeltStreamPipeline(3, mesh=object(), device="cpu")
+
+
+def _encoded_frames(frame, F):
+    """F stereo CELT payloads of `frame` samples from the libopus encoder."""
+    from mousiki_tpu.bitstream.packet import parse_packet
+    from mousiki_tpu.testing import oracle
+    if not oracle.available():
+        pytest.skip("libopus oracle unavailable")
+    enc = oracle.RefEncoder(48000, 2, oracle.APP_RESTRICTED_LOWDELAY)
+    enc.ctl_set(oracle.SET_BITRATE, 96000)
+    pcm16 = oracle.float_to_i16(
+        oracle.make_test_signal(frame * (F + 2), 2, seed=4))
+    return [parse_packet(enc.encode(
+        pcm16[f * frame:(f + 1) * frame].reshape(-1), frame)).frames[0]
+        for f in range(F)]
+
+
+@pytest.mark.parametrize("frame", [120, 240, 480, 960])
+def test_non_plan_path_matches_plan_and_jax(serving, frame):
+    """use_plan=False (the host reconstructs the bands) against plan mode
+    (2e-4), stepped and through decode_stream, and at 20 ms against the
+    JAX non-plan pipeline (1e-5; that one decodes 20 ms frames only)."""
+    S, F = 2, 6
+    if frame == 960:
+        batches = [frame_batch(serving, S, f) for f in range(F)]
+    else:
+        batches = [[p] * S for p in _encoded_frames(frame, F)]
+    plan = CeltStreamPipeline(S, device="cpu")
+    nonplan = CeltStreamPipeline(S, use_plan=False, device="cpu")
+    streamed = CeltStreamPipeline(S, use_plan=False, device="cpu")
+    ref = None
+    if frame == 960:
+        ref = JaxPipeline(S, channels=2, use_native=True, use_plan=False)
+    got_stream = list(streamed.decode_stream(iter(batches), frame))
+    for f, batch in enumerate(batches):
+        got = nonplan.step(batch, frame)
+        assert got.shape == (S, frame, 2)
+        assert torch.equal(got, got_stream[f])
+        assert (got - plan.step(batch, frame)).abs().max() < 2e-4, f
+        if ref is not None:
+            want = np.asarray(ref.step(batch, frame))
+            assert np.abs(got.numpy() - want).max() <= 1e-5, f

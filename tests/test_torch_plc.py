@@ -29,6 +29,7 @@ from mousiki_tpu_torch import convert
 from mousiki_tpu_torch.ops import plc
 from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
                                         set_plan_profile)
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, C, N = 3, 2, 960
 LPC_TOL = 1e-4

@@ -18,6 +18,7 @@ from mousiki_tpu_torch import convert
 from mousiki_tpu_torch.ops import synthesis
 from mousiki_tpu_torch.ops.deemphasis import (deemphasis_pcm_reference,
                                               deemphasis_reference)
+from torch_threads import one_torch_thread  # noqa: F401
 
 PCM_TOL = 2e-5
 MEM_TOL = 1e-5

@@ -1,6 +1,6 @@
 """mousiki_tpu_torch constants and package hygiene: the tables, mode,
-MDCT bases, plan transforms, arena layouts and native sources copied out
-of the JAX package equal their originals, the port's device constants
+MDCT bases, plan transforms, arena layouts, packet parser and native
+sources copied out of the JAX package equal their originals, the port's device constants
 equal the JAX ones, the package imports neither jax nor anything of
 mousiki_tpu, and the de-emphasis wrapper takes its plain path on CPU
 tensors."""
@@ -29,6 +29,7 @@ from mousiki_tpu_torch.celt import host_native, modes, plan
 from mousiki_tpu_torch.ops import _tables, band_exec, deemphasis, mdct, plc
 from mousiki_tpu_torch.ops import synthesis
 from mousiki_tpu_torch.pipeline import SERVING_PROFILE
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -159,13 +160,65 @@ def test_arena_layouts_equal_originals(profile):
                 == jax_host_native.arena_word_layout(S, C, frame)
 
 
-@pytest.mark.parametrize("name", ["celt_host.cpp", "celt_tables.h"])
+@pytest.mark.parametrize("name", ["celt_host.cpp", "celt_tables.h",
+                                  "silk_host.cpp", "silk_tables.h",
+                                  "opus_host.cpp"])
 def test_host_sources_equal_originals(name):
     with open(os.path.join(_ROOT, "native", name), "rb") as fh:
         want = fh.read()
     with open(os.path.join(_ROOT, "mousiki_tpu_torch", "csrc", name),
               "rb") as fh:
         assert fh.read() == want
+
+
+def test_silk_tables_equal_originals():
+    from mousiki_tpu.silk import tables as jax_tables
+    from mousiki_tpu_torch.silk import tables
+    names = [n for n in dir(tables) if n.isupper()]
+    assert sorted(names) == ["SILK_RESAMPLER_FRAC_FIR_12",
+                             "SILK_RESAMPLER_UP2_HQ_0",
+                             "SILK_RESAMPLER_UP2_HQ_1"]
+    for name in names:
+        assert getattr(tables, name) == getattr(jax_tables, name), name
+
+
+def test_parse_packet_equals_original():
+    """Every golden packet, and packets of every frame-count code built
+    from them (code 1, code 2, code 3 CBR/VBR with padding), parse as the
+    original does; malformed ones raise on both sides."""
+    from mousiki_tpu.bitstream import packet as jax_packet
+    from mousiki_tpu_torch.bitstream import packet
+    with np.load(os.path.join(_ROOT, "tests", "fixtures",
+                              "golden.npz")) as g:
+        packets = []
+        for name in g["__manifest_names"]:
+            blob, pos = g[f"{name}__packets"].tobytes(), 0
+            for n in g[f"{name}__lens"]:
+                packets.append(blob[pos:pos + int(n)])
+                pos += int(n)
+    assert len(packets) == 96
+    built = []
+    for a, b in zip(packets[::2], packets[1::2]):
+        toc, fa, fb = a[0] & 0xFC, a[1:], b[1:]
+        built.append(bytes([toc | 1]) + fa + fa)                    # code 1
+        if len(fa) < 252:
+            built.append(bytes([toc | 2, len(fa)]) + fa + fb)       # code 2
+            built.append(bytes([toc | 3, 0x80 | 0x40 | 2, 3, len(fa)])
+                         + fa + fb + b"\0\0\0")                     # code 3
+        built.append(bytes([toc | 3, 3]) + fa * 3)                  # CBR
+    bad = [b"", bytes([packets[0][0] | 1]) + b"abc",
+           bytes([packets[0][0] | 2, 200]) + b"ab",
+           bytes([packets[0][0] | 3]), bytes([packets[0][0] | 3, 0])]
+    for data in packets + built:
+        got, want = packet.parse_packet(data), jax_packet.parse_packet(data)
+        for field in ("toc", "frames", "payload_offset", "packet_offset",
+                      "padding"):
+            assert getattr(got, field) == getattr(want, field), field
+    for data in bad:
+        with pytest.raises(jax_packet.InvalidPacket):
+            jax_packet.parse_packet(data)
+        with pytest.raises(packet.InvalidPacket):
+            packet.parse_packet(data)
 
 
 _BLOCK_JAX = r"""
@@ -200,7 +253,7 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 13, proc.stdout
+    assert n >= 22, proc.stdout
 
 
 def test_deemphasis_cpu_takes_plain_path():
