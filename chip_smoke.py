@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Drives mousiki_tpu_torch's stream decoders end to end on the card: the
-plan-mode CELT decoder (48 kHz stereo, 20 ms frames) and the mixed SILK /
-CELT / hybrid decoder (mono), with the JAX package nowhere in the process
-(it fails first thing if any module of mousiki_tpu is loaded):
+Drives mousiki_tpu_torch's stream decoders and encoders end to end on the
+card: the plan-mode CELT decoder (48 kHz stereo, 20 ms frames), the mixed
+SILK / CELT / hybrid decoder (mono), the CELT encoder (device front +
+native symbol encoder) and the SILK encoder (host analysis + batched
+device quantizer), with the JAX package nowhere in the process (it fails
+first thing if any module of mousiki_tpu is loaded):
 
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
   2. build, all at once: the three native host libraries (csrc/*.cpp,
@@ -44,13 +46,40 @@ CELT / hybrid decoder (mono), with the JAX package nowhere in the process
      lane;
   9. mixed loss: ~10% seeded loss on the mono mix, the first 8 streams
      against the port run on the CPU (5e-3 / 2e-4 as in phase 5);
- 10. timing: steady-state ms/step and aggregate realtime-x through
+ 10. encode front: ops/encode_front.front_step at S = 256, stereo, on the
+     golden stereo PCM (stream s replays fixture s % 3), 12 frames with
+     the state threaded, against the same function on the CPU: every
+     integer and boolean output equal, freq within 1e-4 * max|freq|, the
+     float outputs within 1e-4;
+ 11. CELT encode (the encode side's main path): CeltEncodePipeline(256,
+     channels=2, bitrate=128000), the 12 golden frames through step() and
+     again through encode_stream() with chunks of 4; every packet
+     non-empty; the packets decoded by CeltStreamPipeline on the card and
+     held to the input by a band-limited SNR (16 kHz mono downmix, best
+     delay), the bar 3 dB under the SNR of the same round trip through the
+     port on the CPU in the same run (both printed); the share of packets
+     byte-equal to the CPU port's is printed;
+ 12. SILK quantizers: nsq_frame and nsq_del_dec_frame at S = 256 against
+     the CPU port, lanes tiled from the quantizer calls of a real encoder
+     run (the copied host encoder on a seeded speech-like signal): share
+     of equal pulses a lane >= 0.985 (single state); mean >= 0.9 and half
+     the lanes exactly equal (delayed decision); lanes that hold the same
+     call give the same pulses; at the first sample of the delayed
+     decision, state 0 wins in the lanes where all states tie;
+ 13. SILK encode: SilkEncodePipeline(8) for 4 frames at 24 kbit/s on the
+     golden mono PCM; stream 0's packets equal a one-stream pipeline's,
+     and every packet decodes in OpusStreamPipeline to finite PCM;
+ 14. timing: steady-state ms/step and aggregate realtime-x through
      decode_stream: the CELT decoder at S = 256 (default, overlap_host,
      chunk=4) and S = 1024, the mixed decoder at S = 256 and S = 1024,
-     each timed three times, the modes of one width taking turns (every
-     run, the least and the median are reported); and profiled steps
-     (kernel launches, device busy time, host time by stage) of both
-     decoders and of the device-SILK lane.
+     each timed three times (twice at S = 1024), the modes of one width
+     taking turns (every run, the least and the median are reported); the
+     CELT encoder at
+     S = 256 through step() and through encode_stream() with chunks of 8
+     (24 frames after 8 of warm-up, three runs in turn); and profiled
+     steps (kernel launches, device busy time, host time by stage) of
+     both decoders, the device-SILK lane, one encode step and one frame
+     of each quantizer.
 
 Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
@@ -63,6 +92,7 @@ the profiled steps to DIR/profile_*.txt.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -79,8 +109,11 @@ from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
 from mousiki_tpu_torch._device import require_cuda
 from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import deemphasis as deemph
-from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
+from mousiki_tpu_torch.ops import encode_front, silk_nsq
+from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltEncodePipeline,
+                                        CeltStreamPipeline,
                                         OpusStreamPipeline,
+                                        SilkEncodePipeline,
                                         SilkStreamPipeline, set_plan_profile)
 
 FRAME = 960
@@ -95,6 +128,10 @@ CELT_SHAPE, MIXED_SHAPE = (S_MAIN, 2, FRAME), (S_MAIN, 1, FRAME)
 KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, (256, 2, 120), (7, 1, 960),
                  (3, 2, 240))
 TIMING_REPEATS = 3
+ENCODE_BITRATE = 128000
+# the card's CELT encode -> decode round trip may fall this far (dB) under
+# the same round trip through the port on the CPU, made in the same run
+ENCODE_SNR_MARGIN_DB = 3.0
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -444,7 +481,8 @@ def _time_stream(pipe, batch_fn, warm=3, steps=12, **kwargs):
 
 
 # record_function spans of the port
-RANGES = ("host.", "plan.", "plc.", "synthesis.", "silk.", "mixed.")
+RANGES = ("host.", "plan.", "plc.", "synthesis.", "silk.", "mixed.",
+          "front.", "nsq.")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
 
@@ -518,7 +556,9 @@ def phase_timing(dev, streams, mono):
         # the modes take turns, so that a slow stretch of the shared host
         # does not fall on one of them alone
         runs: dict = {name: [] for name in modes}
-        for rep in range(TIMING_REPEATS):
+        # the wide runs are timed twice: with three the whole run took over
+        # ten minutes on a slow host
+        for rep in range(TIMING_REPEATS if S == S_MAIN else 2):
             for name, (p, batch_fn, kwargs) in modes.items():
                 runs[name].append(_time_stream(
                     p, batch_fn, warm=1 if rep else 3, **kwargs))
@@ -541,12 +581,376 @@ def phase_timing(dev, streams, mono):
                      lambda f: lane.step(mixed_batch(f)))
 
 
+# ------------------------------------------------------------ encode side
+
+def _pcm_batch(streams, S, f):
+    """(S, 960, channels) float32 input of frame f: the golden PCM."""
+    return golden_pcm(streams, S, f % 12)
+
+
+def phase_encode_front(dev, streams):
+    """front_step on the card against the same function on the CPU: the
+    card runs 256 streams, the CPU the three distinct ones."""
+    S, F, K = S_MAIN, 12, len(streams)
+    consts = {d: encode_front.make_front_consts(FRAME, d)
+              for d in (dev, "cpu")}
+    st_g = encode_front.init_front_state(S, 2, FRAME, dev)
+    st_c = encode_front.init_front_state(K, 2, FRAME, "cpu")
+    nby = torch.full((S,), 320, dtype=torch.int32)
+    worst = {"freq_rel": 0.0, "floats": 0.0}
+    for f in range(F):
+        pcm = torch.from_numpy(_pcm_batch(streams, S, f))
+        tapset = ((torch.arange(S) % K + f) % 3).to(torch.int32)
+        got, st_g = encode_front.front_step(
+            consts[dev], st_g, pcm.to(dev), nby.to(dev), tapset.to(dev))
+        want, st_c = encode_front.front_step(
+            consts["cpu"], st_c, pcm[:K], nby[:K], tapset[:K])
+        lane = torch.arange(S) % K
+        for key, w in want.items():
+            g, w = got[key].cpu(), w[lane]
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"front {key}: {g.shape} {g.dtype} on the card")
+            if not g.is_floating_point():
+                check(bool((g == w).all()),
+                      f"front frame {f}: {key} differs in "
+                      f"{int((g != w).sum())} streams")
+            elif key == "freq":
+                rel = float((g - w).abs().max() / w.abs().max())
+                check(rel <= 1e-4, f"front frame {f}: freq off by {rel}")
+                worst["freq_rel"] = max(worst["freq_rel"], rel)
+            else:
+                check(bool(torch.isfinite(g).all()), f"front {key} not finite")
+                err = float((g - w).abs().max())
+                check(err <= 1e-4, f"front frame {f}: {key} off by {err}")
+                worst["floats"] = max(worst["floats"], err)
+    say("encode_front", streams=S, frames=F,
+        worst_freq_rel_err=worst["freq_rel"],
+        worst_float_output_err=worst["floats"], bar=1e-4,
+        integer_outputs="equal")
+
+
+def _downmix_16k(x48):
+    """48 kHz (n, channels) -> 16 kHz mono, through a windowed-sinc
+    low-pass (the encode tests' band-limited comparison)."""
+    taps = 96
+    t = np.arange(-taps, taps + 1, dtype=np.float64)
+    h = np.sinc(t / 3.0) / 3.0 * np.hanning(2 * taps + 1)
+    return np.convolve(np.asarray(x48, np.float64).mean(axis=1), h,
+                       mode="same")[::3]
+
+
+def _snr_db(ref48, got48, skip=960):
+    """SNR of got against ref after the downmix, at the best delay, past
+    the first frame."""
+    a, b = _downmix_16k(ref48[skip:]), _downmix_16k(got48[skip:])
+    best = -1e9
+    for lag in range(0, 120):
+        bb = b[lag:]
+        aa = a[:len(bb)]
+        best = max(best, 10 * np.log10(
+            (aa ** 2).mean() / (((aa - bb) ** 2).mean() + 1e-20)))
+    return float(best)
+
+
+def _encode_round_trip(device, streams, S, chunk=None):
+    """Encode the 12 golden frames (step(), or encode_stream() in chunks),
+    decode the packets with the port's CELT decoder on the same device.
+    Returns (packets [frame][stream], decoded (S, 12 * 960, 2))."""
+    F = 12
+    enc = CeltEncodePipeline(S, channels=2, bitrate=ENCODE_BITRATE,
+                             device=device)
+    if chunk is None:
+        frames = [enc.step(_pcm_batch(streams, S, f)) for f in range(F)]
+    else:
+        frames = list(enc.encode_stream(
+            np.stack([_pcm_batch(streams, S, f)
+                      for f in range(c, c + chunk)])
+            for c in range(0, F, chunk)))
+    check(len(frames) == F, f"{len(frames)} encoded frames of {F}")
+    if chunk is not None and enc.device.type == "cuda":
+        # the read-back of a chunk lands in page-locked memory: a ring of
+        # two buffer sets, each waited on by its event before it is read
+        sets = enc._d2h._sets
+        check(all(s is not None and all(h.is_pinned() for h in s)
+                  for s in sets), "the encoder's read-back is not pinned")
+    dec = CeltStreamPipeline(S, channels=2, device=device)
+    out = []
+    for pkts in frames:
+        check(len(pkts) == S and all(p is not None and len(p) > 10
+                                     for p in pkts),
+              "an encoded packet is empty")
+        out.append(dec.step(pkts, FRAME).cpu().numpy())
+    return frames, np.concatenate(out, axis=1)
+
+
+def phase_encode_celt(dev, streams):
+    """The encode main path: 256 stereo streams encoded on the card,
+    decoded on the card, held to the input. The bar of each fixture is the
+    SNR of the same round trip through the port on the CPU (one stream a
+    fixture, made in this run) less ENCODE_SNR_MARGIN_DB."""
+    S, K = S_MAIN, len(streams)
+    result = {}
+    for mode, chunk in (("step", None), ("stream4", 4)):
+        frames, decoded = _encode_round_trip(dev, streams, S, chunk)
+        cpu_frames, cpu_decoded = _encode_round_trip("cpu", streams, K, chunk)
+        check(bool(np.isfinite(decoded).all()), "non-finite decoded pcm")
+        cpu_snr = {g.name: _snr_db(g.pcm, cpu_decoded[s])
+                   for s, g in enumerate(streams)}
+        snr = {}
+        for s in range(S):
+            g = streams[s % K]
+            val = _snr_db(g.pcm, decoded[s])
+            bar = cpu_snr[g.name] - ENCODE_SNR_MARGIN_DB
+            check(val >= bar, f"encode {mode}: stream {s} ({g.name}) "
+                  f"{val:.2f} dB under its bar {bar:.2f}")
+            snr[g.name] = min(snr.get(g.name, 1e9), val)
+        equal = sum(frames[f][s] == cpu_frames[f][s % K]
+                    for f in range(12) for s in range(S))
+        result[mode] = dict(
+            min_snr_db_by_fixture=snr, cpu_snr_db_by_fixture=cpu_snr,
+            packets_equal_to_cpu_port=equal / (12 * S),
+            packet_bytes=len(frames[0][0]))
+    say("encode_celt", streams=S, frames=12, bitrate=ENCODE_BITRATE,
+        margin_db=ENCODE_SNR_MARGIN_DB, **result)
+
+
+def _speechlike(n, seed=0, frame=320):
+    """Alternating voiced / unvoiced resonator output at int16 scale (the
+    signal of the quantizer tests)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros(n, np.float64)
+    t = 0
+    voiced = True
+    while t < n:
+        seg = min(n - t, 4 * frame)
+        if voiced:
+            exc = np.zeros(seg)
+            exc[::rng.integers(40, 200)] = 1.0
+            exc += rng.standard_normal(seg) * 0.02
+        else:
+            exc = rng.standard_normal(seg) * 0.3
+        a = 1.8 * np.cos(2 * np.pi * rng.uniform(0.03, 0.12))
+        y = np.zeros(seg)
+        y1 = y2 = 0.0
+        for i in range(seg):
+            y[i] = exc[i] + a * y1 - 0.81 * y2
+            y2, y1 = y1, y[i]
+        out[t:t + seg] = y / (np.abs(y).max() + 1e-9)
+        t += seg
+        voiced = not voiced
+    return out * 9000
+
+
+def _harvest_nsq(del_dec: bool, n_frames=16):
+    """Every wide-band quantizer call of a real encoder run (the copied
+    host SILK encoder at 24 kbit/s on the speech-like signal), each with
+    the quantizer state it started from."""
+    from mousiki_tpu_torch.hostcodec.bitstream.entcode import RangeEncoder
+    from mousiki_tpu_torch.hostcodec.silk import noise_shape, nsq_del_dec
+    from mousiki_tpu_torch.hostcodec.silk.encoder import SilkEncoder
+
+    module, name = ((nsq_del_dec, "nsq_del_dec_best") if del_dec
+                    else (noise_shape, "nsq_shaped"))
+    orig = getattr(module, name)
+    calls = []
+
+    def spy(x, st_nsq, ctl, **kw):
+        req = {"x": np.asarray(x, np.float64).copy(),
+               "st": copy.deepcopy(st_nsq), "ctl": ctl, "kw": dict(kw)}
+        out = orig(x, st_nsq, ctl, **kw)
+        if kw["frame_length"] == 320:
+            calls.append(req)
+        return out
+
+    setattr(module, name, spy)
+    try:
+        enc = SilkEncoder()
+        enc.use_del_dec = del_dec
+        enc.set_fs(16, 16000, 4)
+        sig = _speechlike(320 * (n_frames + 1), seed=1)
+        for f in range(n_frames):
+            rc = RangeEncoder(1300)
+            enc.encode_frame(rc, sig[f * 320:(f + 1) * 320], 4, 24000)
+            rc.done()
+    finally:
+        setattr(module, name, orig)
+    return calls
+
+
+def _nsq_batch(calls, S, device, del_dec):
+    """Lane s holds call s % len(calls): (NsqParams, state) on `device`."""
+    from mousiki_tpu_torch.parallel.nsq_batch import NsqBatchExecutor
+    P, st = NsqBatchExecutor(len(calls), device="cpu").pack_requests(calls)
+    lane = np.arange(S) % len(calls)
+    params = silk_nsq.NsqParams(**{
+        k: torch.from_numpy(v[lane]).to(device) for k, v in P.items()})
+    cls = silk_nsq.NsqDelDecState if del_dec else silk_nsq.NsqDevState
+    return params, cls(**{k: torch.from_numpy(v[lane]).to(device)
+                          for k, v in st.items()})
+
+
+NSQ_KW = dict(nb_subfr=4, sub=80, M=320)
+NSQ_WARPING = 983 * 16 / 65536.0
+
+
+class _FirstArgmin:
+    """Inside the block, keeps the input and the result of the first
+    torch.argmin call: in nsq_del_dec_frame that is the choice of the
+    first sample's winner among the trellis states."""
+
+    def __enter__(self):
+        self.seen = None
+        self._orig = torch.argmin
+
+        def spy(x, *args, **kwargs):
+            out = self._orig(x, *args, **kwargs)
+            if self.seen is None:
+                self.seen = (x.clone(), out.clone())
+            return out
+
+        torch.argmin = spy
+        return self
+
+    def __exit__(self, *exc):
+        torch.argmin = self._orig
+
+
+def phase_silk_nsq(dev):
+    S = S_MAIN
+    out = {}
+    batches = {}
+    for del_dec in (False, True):
+        calls = _harvest_nsq(del_dec)
+        n = len(calls)
+        check(n >= 8, f"{n} quantizer calls harvested")
+        fn = (partial(silk_nsq.nsq_del_dec_frame, warping=NSQ_WARPING)
+              if del_dec else silk_nsq.nsq_frame)
+        batches[del_dec] = (fn, _nsq_batch(calls, S, dev, del_dec))
+        with _FirstArgmin() as first:
+            got = fn(*batches[del_dec][1], **NSQ_KW)[0].cpu()
+        want = fn(*_nsq_batch(calls, n, "cpu", del_dec), **NSQ_KW)[0]
+        check(got.shape == (S, 320) and got.dtype == torch.int32,
+              f"pulses {tuple(got.shape)} {got.dtype}")
+        lane = torch.arange(S) % n
+        share = (got == want[lane]).float().mean(1)
+        same = int((got == got[lane]).all(1).sum())
+        check(same == S, f"{S - same} lanes differ from the first lane that "
+              "holds the same call")
+        res = dict(calls=n, min_share=float(share.min()),
+                   mean_share=float(share.mean()),
+                   lanes_exactly_equal=int((share == 1).sum()),
+                   lanes_equal_to_their_first_copy=same)
+        if del_dec:
+            check(float(share.mean()) >= 0.9,
+                  f"del-dec mean share of equal pulses {share.mean()}")
+            check(int((share == 1).sum()) >= S // 2,
+                  f"del-dec: {int((share == 1).sum())} of {S} lanes equal")
+            # the first sample: where every state has the same cost, the
+            # first state wins, on the card as in the reference
+            cost, win = first.seen
+            check(cost.is_cuda and cost.shape == (S, silk_nsq.MAX_DD_STATES),
+                  f"first-sample costs {tuple(cost.shape)} on {cost.device}")
+            tied = (cost == cost[:, :1]).all(1)
+            check(int(tied.sum()) > 0, "no lane ties at the first sample")
+            check(bool((win[tied] == 0).all()),
+                  f"first-sample winners of tied lanes: "
+                  f"{sorted(set(win[tied].tolist()))}")
+            res.update(first_sample_tied_lanes=int(tied.sum()),
+                       first_sample_winners_of_tied_lanes=sorted(
+                           set(win[tied].tolist())))
+        else:
+            check(float(share.min()) >= 0.985,
+                  f"nsq_frame share of equal pulses {share.min()}")
+        out["del_dec" if del_dec else "single"] = res
+    say("silk_nsq", streams=S, **out)
+    return batches
+
+
+def phase_encode_silk(dev, mono):
+    S, F = 8, 4
+    batched = SilkEncodePipeline(S, bitrate=24000, device=dev)
+    solo = SilkEncodePipeline(1, bitrate=24000, device=dev)
+    dec = OpusStreamPipeline(S, channels=1, device=dev)
+    t0 = time.perf_counter()
+    sizes = []
+    for f in range(F):
+        pcm = _pcm_batch(mono, S, f)[:, :, 0]
+        pkts = batched.step(pcm)
+        check(len(pkts) == S and all(p and len(p) > 2 for p in pkts),
+              f"SILK encode frame {f}: an empty packet")
+        check(solo.step(pcm[:1])[0] == pkts[0],
+              f"SILK encode frame {f}: stream 0 differs from itself alone")
+        out = dec.step(pkts).cpu().numpy()
+        check(out.shape == (S, FRAME, 1) and bool(np.isfinite(out).all()),
+              f"SILK packets of frame {f} decode to {out.shape}")
+        check(set(int(m) for m in dec.last_modes) == {1},
+              f"decoded modes {dec.last_modes}: SILK expected")
+        sizes.append([len(p) for p in pkts])
+    say("encode_silk", streams=S, frames=F, bitrate=24000,
+        device_quantizer_calls=batched._ex.dispatches,
+        solo_quantizer_calls=solo._ex.dispatches,
+        packet_bytes_last_frame=sizes[-1],
+        seconds=round(time.perf_counter() - t0, 2))
+
+
+def phase_encode_timing(dev, streams, nsq_batches):
+    """ms/step of the CELT encoder at S = 256 through step() and through
+    encode_stream(K = 8), and the profiles of the encode side."""
+    S, K, warm, timed = S_MAIN, 8, 8, 24
+    frames = [_pcm_batch(streams, S, f) for f in range(12)]
+    chunks = [np.stack([frames[(c + k) % 12] for k in range(K)])
+              for c in range(0, warm + timed, K)]
+
+    def run_step(pipe):
+        for f in range(warm):
+            pipe.step(frames[f % 12])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(warm, warm + timed):
+            check(len(pipe.step(frames[f % 12])) == S, "packets missing")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / timed
+
+    def run_stream(pipe):
+        for _ in pipe.encode_stream(iter(chunks[:warm // K])):
+            pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in pipe.encode_stream(iter(chunks[warm // K:])))
+        torch.cuda.synchronize()
+        check(n == timed, f"{n} frames of {timed} came out")
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    modes = {"encode_step": run_step, "encode_stream8": run_stream}
+    pipes = {name: CeltEncodePipeline(S, channels=2, bitrate=ENCODE_BITRATE,
+                                      device=dev) for name in modes}
+    runs: dict = {name: [] for name in modes}
+    for _ in range(TIMING_REPEATS):
+        for name, fn in modes.items():
+            runs[name].append(fn(pipes[name]))
+    for name, ms in runs.items():
+        median = float(np.median(ms))
+        say(f"timing_{name}_S{S}", streams=S, ms_per_step=median,
+            ms_per_step_min=min(ms), ms_per_step_runs=ms,
+            realtime_x=S * 0.02 / (median / 1e3))
+    pipe = pipes["encode_step"]
+    _profile(f"encode_step_S{S}", lambda f: pipe.step(frames[f]))
+    for del_dec, (fn, args) in nsq_batches.items():
+        name = f"nsq_{'del_dec' if del_dec else 'frame'}_S{S}"
+        wall_ms = _timed(lambda: (fn(*args, **NSQ_KW),
+                                  torch.cuda.synchronize())) * 1e3
+        say(f"profile_{name}", unprofiled_wall_ms=wall_ms,
+            **_profile_step(lambda: fn(*args, **NSQ_KW), name))
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the measurements (JSON) "
                     "and profiler tables")
-    OUT_DIR = ap.parse_args().out
+    args = ap.parse_args()
+    OUT_DIR = args.out
+    t_start = time.perf_counter()
     check_no_jax_package()
     dev, card = phase_device()
     if OUT_DIR is not None:
@@ -562,7 +966,12 @@ def main() -> int:
     n_mixed = phase_mixed_main(dev, mono)
     phase_device_silk(dev, mono)
     phase_mixed_loss(dev, mono)
+    phase_encode_front(dev, streams)
+    phase_encode_celt(dev, streams)
+    nsq_batches = phase_silk_nsq(dev)
+    phase_encode_silk(dev, mono)
     phase_timing(dev, streams, mono)
+    phase_encode_timing(dev, streams, nsq_batches)
     # one row for each main path's shape: the path's launches (counted
     # from 0 just before it ran) beside what phase 3 measured at that shape
     kernels = {"kernels": [{
@@ -580,6 +989,7 @@ def main() -> int:
         for path, shape, launches in (("celt", CELT_SHAPE, n_celt),
                                       ("mixed", MIXED_SHAPE, n_mixed))]}
     RESULTS["kernels"] = kernels
+    say("run", seconds=round(time.perf_counter() - t_start, 1))
     if OUT_DIR is not None:
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
             json.dump(RESULTS, fh, indent=1, default=str)

@@ -1,12 +1,17 @@
 """mousiki_tpu_torch — the PyTorch/CUDA port of mousiki_tpu's stream
-decoders, for one NVIDIA H100: `CeltStreamPipeline` (CELT, plan and
-non-plan mode), `SilkStreamPipeline` (SILK, host or device synthesis) and
-`OpusStreamPipeline` (mixed SILK / CELT / hybrid packets).
+pipelines, for one NVIDIA H100. Decoders: `CeltStreamPipeline` (CELT, plan
+and non-plan mode), `SilkStreamPipeline` (SILK, host or device synthesis)
+and `OpusStreamPipeline` (mixed SILK / CELT / hybrid packets). Encoders:
+`CeltEncodePipeline` (the device front of `ops/encode_front.py` feeding
+the native symbol encoder) and `SilkEncodePipeline` (per-stream host
+encoders whose noise-shaping quantizer calls `parallel/nsq_batch.py`
+batches onto `ops/silk_nsq.py`).
 
 The port stands alone: it keeps its own copies of what it needs from
 `mousiki_tpu` (the native C++ host stages in `csrc/`, the 48 kHz mode, the
-MDCT bases, the plan transforms, the packet parser, the resampler tables)
-and imports nothing of that package. The device half is PyTorch ops on
+MDCT bases, the plan transforms, the packet parser, the resampler tables,
+and under `hostcodec/` the numpy host codec the SILK encoder drives) and
+imports nothing of that package. The device half is PyTorch ops on
 tensors, with the de-emphasis tail (IIR, scale, interleave) as a
 hand-written CUDA kernel (`ops/deemphasis.py`, `csrc/deemphasis.cu`). The
 JAX package stays the reference every module is tested against.
@@ -15,9 +20,10 @@ Importing this package loads nothing heavy; `torch` loads with the first
 submodule that needs it, and no module here imports `jax`.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
-__all__ = ["CeltStreamPipeline", "OpusStreamPipeline", "SilkStreamPipeline"]
+__all__ = ["CeltEncodePipeline", "CeltStreamPipeline", "OpusStreamPipeline",
+           "SilkEncodePipeline", "SilkStreamPipeline"]
 
 
 def __getattr__(name):

@@ -2,7 +2,9 @@
 symbol decoder.
 
 A copy of the batch decoder of mousiki_tpu/celt/host_native.py: the plan
-path (packed band plans) and the non-plan batch call (dense spectra).
+path (packed band plans) and the non-plan batch call (dense spectra);
+and of its batch symbol encoder (`NativeCeltEncoderBatch`), the back half
+of the CELT encode pipeline.
 The library builds at first use from `csrc/celt_host.cpp` (a
 byte-for-byte copy of native/celt_host.cpp) into
 `mousiki_tpu_torch/build/libcelt_host.so`; a failed build raises with
@@ -44,6 +46,16 @@ def _load():
         C.POINTER(C.c_void_p), C.c_char_p, ip, ip, C.c_int, C.c_int, C.c_int,
         C.c_int, C.c_int, C.c_int, vp, C.c_int]
     lib.celt_host_decode_plan_batch.restype = None
+    lib.celt_enc_host_create.restype = C.c_void_p
+    lib.celt_enc_host_create.argtypes = [C.c_int, C.c_int, C.c_int]
+    lib.celt_enc_host_destroy.argtypes = [C.c_void_p]
+    lib.celt_enc_host_destroy.restype = None
+    lib.celt_enc_host_encode_batch.argtypes = [
+        C.POINTER(C.c_void_p), fp, ip, fp, C.c_int, C.c_int, C.c_int,
+        C.c_int, C.c_char_p, ip, C.c_int]
+    lib.celt_enc_host_encode_batch.restype = None
+    lib.celt_enc_host_tapset.restype = C.c_int
+    lib.celt_enc_host_tapset.argtypes = [C.c_void_p]
     _apply_profile(lib)
     _lib = lib
     return lib
@@ -451,3 +463,69 @@ class NativeCeltHostBatch:
             aux_list.append(aux)
         return backing2d, aux_list, any_direct, any_lost
 
+
+
+class NativeCeltEncoderBatch:
+    """S native CELT symbol encoders driven by one multithreaded batch
+    call: the back half of the encode pipeline. The device front
+    (ops/encode_front.py) computes the MDCT spectrum and the analysis
+    decisions; this stage runs coarse/fine energy, tf, spread, dynalloc,
+    allocation, PVQ search and range coding (csrc/celt_host.cpp, encoder
+    section)."""
+
+    MAX_BYTES = 1275
+
+    def __init__(self, n_streams: int, channels: int = 2,
+                 complexity: int = 5, disable_inv: bool = False,
+                 n_threads: int = 0):
+        lib = _load()
+        self._lib = lib
+        self.S = n_streams
+        self.channels = channels
+        self.n_threads = n_threads
+        self._states = (C.c_void_p * n_streams)(
+            *[lib.celt_enc_host_create(channels, complexity,
+                                       1 if disable_inv else 0)
+              for _ in range(n_streams)])
+        self._out = np.zeros((n_streams, self.MAX_BYTES), np.uint8)
+        self._lens = np.zeros(n_streams, np.int32)
+
+    def __del__(self):
+        if getattr(self, "_states", None) is not None and self._lib is not None:
+            for st in self._states:
+                if st:
+                    self._lib.celt_enc_host_destroy(st)
+            self._states = None
+
+    def encode(self, freq: np.ndarray, iparams: np.ndarray,
+               fparams: np.ndarray, frame_size: int = 960) -> list:
+        """freq: (S, C, frame) float32 MDCT spectra of the device front.
+        iparams: (S, 6) int32 [silence, pf_on, pitch_index, qg,
+        is_transient, nbytes]. fparams: (S, 3) float32 [tone_freq,
+        toneishness, tf_estimate]. Returns S packets (bytes)."""
+        S = self.S
+        freq = np.ascontiguousarray(freq, np.float32)
+        iparams = np.ascontiguousarray(iparams, np.int32)
+        fparams = np.ascontiguousarray(fparams, np.float32)
+        if freq.shape != (S, self.channels, frame_size):
+            raise ValueError(f"freq {freq.shape} for "
+                             f"{(S, self.channels, frame_size)}")
+        if iparams.shape != (S, 6) or fparams.shape != (S, 3):
+            raise ValueError(f"iparams {iparams.shape} / fparams "
+                             f"{fparams.shape} for {S} streams")
+        ip = C.POINTER(C.c_int32)
+        fp = C.POINTER(C.c_float)
+        self._lib.celt_enc_host_encode_batch(
+            self._states, freq.ctypes.data_as(fp),
+            iparams.ctypes.data_as(ip), fparams.ctypes.data_as(fp), S,
+            self.channels, frame_size, self.MAX_BYTES,
+            self._out.ctypes.data_as(C.c_char_p),
+            self._lens.ctypes.data_as(ip), self.n_threads)
+        return [bytes(self._out[s, :ln]) if ln > 0 else None
+                for s, ln in enumerate(self._lens.tolist())]
+
+    def tapsets(self) -> np.ndarray:
+        """Per-stream tapset decisions (they feed the next front step)."""
+        return np.asarray(
+            [self._lib.celt_enc_host_tapset(st) for st in self._states],
+            np.int32)

@@ -28,6 +28,8 @@ E_MEANS = np.array([
 ], np.float32)
 
 DECODE_BUFFER_SIZE = 2048
+COMBFILTER_MINPERIOD = 15
+COMBFILTER_MAXPERIOD = 1024
 CELT_LPC_ORDER = 24
 PLC_PITCH_LAG_MAX = 720
 PLC_PITCH_LAG_MIN = 100

@@ -7,7 +7,10 @@ continues in the port through these functions, and back. The mixed
 pipeline adds the resamplers' state per SILK rate, the one-sample SILK
 delay, the previous rates and (device-SILK lane) the synthesis state:
 `MixedState`. The native decoders' state lives in C++ on both sides and
-is reached by feeding both the same packets.
+is reached by feeding both the same packets. The encode side carries the
+CELT front's state (a dict in the reference, `FrontState` here) and the
+noise-shaping quantizers' states (`NsqDevState`, `NsqDelDecState`: the
+same eight fields on both sides).
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import numpy as np
 import torch
 
 from . import _device
+from .ops.encode_front import FrontState
 from .ops.plc import PlcState
+from .ops.silk_nsq import NsqDelDecState, NsqDevState
 from .ops.silk_resampler import Up48State
 from .ops.silk_synthesis import SilkStreamState
 from .ops.synthesis import StreamState
@@ -48,6 +53,32 @@ def stream_state_to_numpy(state: StreamState) -> StreamState:
 
 def plc_state_to_numpy(plc: PlcState) -> PlcState:
     return PlcState(*(v.detach().cpu().numpy() for v in plc))
+
+
+def front_state_from_numpy(state: dict, device) -> FrontState:
+    """The reference's front-state dict (numpy arrays, or anything
+    np.asarray reads) as a FrontState on `device`."""
+    dev = _device.as_device(device)
+    return FrontState(*(_tensor(state[k], dev) for k in FrontState._fields))
+
+
+def front_state_to_numpy(state: FrontState) -> dict:
+    """A FrontState as the reference's dict of numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def nsq_state_from_numpy(state, device, del_dec: bool = False):
+    """The eight fields of a noise-shaping quantizer state (the
+    reference's NsqDevState or NsqDelDecState, as numpy arrays or
+    anything np.asarray reads) as the port's state on `device`."""
+    dev = _device.as_device(device)
+    cls = NsqDelDecState if del_dec else NsqDevState
+    return cls(*(_tensor(v, dev) for v in state))
+
+
+def nsq_state_to_numpy(state):
+    """An NsqDevState / NsqDelDecState of numpy arrays."""
+    return type(state)(*(v.detach().cpu().numpy() for v in state))
 
 
 class MixedState(NamedTuple):

@@ -12,6 +12,7 @@ original):
                                         _COMB_GAINS
   * `fold_operator`                  <- encode_front_jax._fold_operator
                                         (returns numpy arrays here)
+  * `TRANSIENT_INV_TABLE`            <- celt/encoder._TRANSIENT_INV_TABLE
 """
 
 from __future__ import annotations
@@ -36,6 +37,16 @@ COMB_GAINS = np.array([
     [0.3066406250, 0.2170410156, 0.1296386719],
     [0.4638671875, 0.2680664062, 0.0],
     [0.7998046875, 0.1000976562, 0.0],
+], np.float32)
+
+# inverse masking ratio table of the encoder's transient analysis
+TRANSIENT_INV_TABLE = np.array([
+    255, 255, 156, 110, 86, 70, 59, 51, 45, 40, 37, 33, 31, 28, 26, 25, 23,
+    22, 21, 20, 19, 18, 17, 16, 16, 15, 15, 14, 13, 13, 12, 12, 12, 12, 11,
+    11, 11, 10, 10, 10, 9, 9, 9, 9, 9, 9, 8, 8, 8, 8, 8, 7, 7, 7, 7, 7, 7,
+    6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 5, 5, 5, 5, 5, 5, 5, 5,
+    5, 5, 5, 5, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
+    4, 4, 4, 4, 4, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 2,
 ], np.float32)
 
 

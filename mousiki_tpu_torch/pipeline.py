@@ -1,5 +1,5 @@
-"""End-to-end batched stream decoders in PyTorch: port of the three decode
-pipelines of mousiki_tpu/pipeline.py, for one device.
+"""End-to-end batched stream decoders and encoders in PyTorch: port of
+the pipelines of mousiki_tpu/pipeline.py, for one device.
 
   CeltStreamPipeline   S CELT payloads --native symbol stage--> one packed
                        int32 plan arena --host-to-device copy--> device
@@ -14,10 +14,18 @@ pipelines of mousiki_tpu/pipeline.py, for one device.
                        arena + SILK pcm --one device step (CELT plan step,
                        per-rate resamplers, sum)--> (S, 960, C) PCM.
 
-The host halves are the port's own copies of the native C++ decoders
+  CeltEncodePipeline   (S, frame, C) PCM --device front (analysis +
+                       forward MDCT)--device-to-host copy--> native symbol
+                       encoder --> S CELT frames.
+  SilkEncodePipeline   (S, 960) PCM --S host SILK encoders on threads,
+                       their noise-shaping quantizer calls batched into
+                       one device call a round--> S SILK packets.
+
+The host halves are the port's own copies of the native C++ codecs
 (`celt/host_native.py`, `silk/host_native.py`, `opus_host_native.py`,
-built with g++ from `csrc/` at first use); there is no pure-Python decoder
-fallback and no multi-device mesh here.
+built with g++ from `csrc/` at first use) and, for the SILK encoder, of
+the numpy host codec (`hostcodec/`); there is no pure-Python fallback for
+a native stage and no multi-device mesh here.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from .celt import host_native
 from .celt.modes import MODE
 from .ops.band_exec import (plan_combo_mats, plan_synthesis_scan,
                             plan_synthesis_step_plc)
+from .ops.encode_front import (front_scan, front_step, init_front_state,
+                               make_front_consts)
 from .ops.plc import init_plc_state, make_plc_consts
 from .ops.silk_resampler import init_up48_state, make_up48_plan, up48_step
 from .ops.silk_synthesis import (SilkFrameParams, init_silk_state,
@@ -790,3 +800,220 @@ class OpusStreamPipeline:
         finished."""
         for packets in frames_iter:
             yield self._h2d.finish(self.step(packets, frame_size))
+
+
+class _EncodeReadback:
+    """Device-to-host copies of the front's outputs for the native symbol
+    encoder: the spectrum, the (S, 6) integer and the (S, 3) float
+    parameter planes of K frames.
+
+    On a GPU the three planes land in page-locked host buffers, a ring of
+    two sets allocated once (and again only for a larger chunk), through
+    asynchronous copies followed by an event; `fetch` waits on that event
+    before it hands the buffers out, so the bytes have landed when the
+    native encoder reads them. A set is free again once its frames are
+    encoded: a caller keeps at most two chunks in flight. On the CPU the
+    tensors themselves are handed over.
+    """
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self._sets = [None, None]
+        self._next = 0
+
+    def _buffers(self, planes):
+        held = self._sets[self._next]
+        if held is None or any(
+                h.shape[0] < p.shape[0] or h.shape[1:] != p.shape[1:]
+                or h.dtype != p.dtype for h, p in zip(held, planes)):
+            held = self._sets[self._next] = tuple(
+                torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                for p in planes)
+        self._next ^= 1
+        return held
+
+    def start(self, freq, iparams, fparams):
+        """Begin the copy of (K, S, ...) planes; returns a ticket for
+        `fetch`."""
+        planes = (freq, iparams, fparams)
+        if not self.cuda:
+            return planes, None
+        K = freq.shape[0]
+        with record_function("host.d2h"):
+            held = tuple(h[:K] for h in self._buffers(planes))
+            for h, p in zip(held, planes):
+                h.copy_(p, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return held, event
+
+    @staticmethod
+    def fetch(ticket):
+        """The three planes as numpy arrays, once the copy is done."""
+        planes, event = ticket
+        if event is not None:
+            with record_function("host.d2h"):
+                event.synchronize()
+        return tuple(p.numpy() for p in planes)
+
+
+class CeltEncodePipeline:
+    """Batched CELT encode: the device front half (preemphasis, tone
+    detection, prefilter pitch search and application, transient
+    analysis, forward MDCT: ops/encode_front.py) feeding S native symbol
+    encoders (coarse/fine energy, allocation, PVQ search, range coding).
+    Packets are standard CELT-only Opus frames (without the TOC byte),
+    decodable by any conformant decoder. Constant bit rate: every frame
+    gets the same byte budget.
+
+    The symbol encoders are the native library's; there is no
+    pure-Python back half, and a library that does not build raises here.
+    """
+
+    def __init__(self, n_streams: int, channels: int = 2,
+                 bitrate: int = 128000, frame_size: int = 960, *, device):
+        self.S = n_streams
+        self.channels = channels
+        self.frame = frame_size
+        self.device = dev = _device.as_device(device)
+        self.nbytes = max(12, int(bitrate * frame_size / (8 * 48000)))
+        self._consts = make_front_consts(frame_size, dev)
+        self._state = init_front_state(n_streams, channels, frame_size, dev)
+        self._native = host_native.NativeCeltEncoderBatch(
+            n_streams, channels=channels)
+        self._nby = torch.full((n_streams,), self.nbytes, dtype=torch.int32,
+                               device=dev)
+        self._d2h = _EncodeReadback(dev)
+
+    def _pcm(self, pcm, ndim: int):
+        """pcm (array or tensor) as a float32 tensor on the device; its
+        last three axes must be (S, frame, channels)."""
+        pcm = torch.as_tensor(pcm, dtype=torch.float32)
+        want = (self.S, self.frame, self.channels)
+        if pcm.dim() != ndim or tuple(pcm.shape[-3:]) != want:
+            raise ValueError(f"pcm {tuple(pcm.shape)}: expected {ndim} axes "
+                             f"ending in {want}")
+        return pcm.to(self.device)
+
+    def _tapset(self):
+        return torch.from_numpy(self._native.tapsets()).to(self.device)
+
+    def front(self, pcm) -> dict:
+        """The device half alone: one front step, state advanced; returns
+        the analysis tensors on the device."""
+        out, self._state = front_step(
+            self._consts, self._state, self._pcm(pcm, 3), self._nby,
+            self._tapset())
+        return out
+
+    def _params(self, out: dict):
+        """The parameter planes of the native encoder, built on the
+        device: (..., S, 6) int32 [silence, pf_on, pitch_index, qg,
+        is_transient, nbytes] and (..., S, 3) float32 [tone_freq,
+        toneishness, tf_estimate]."""
+        i32 = torch.int32
+        iparams = torch.stack(
+            [out["silence"].to(i32), out["pf_on"].to(i32),
+             out["pitch_index"], out["qg"], out["is_transient"].to(i32),
+             self._nby.expand_as(out["qg"])], dim=-1)
+        fparams = torch.stack([out["tone_freq"], out["toneishness"],
+                               out["tf_estimate"]], dim=-1)
+        return out["freq"], iparams, fparams
+
+    def _native_back(self, freq, iparams, fparams) -> list:
+        """One frame's native symbol encode from fetched planes."""
+        if freq.dtype != np.float32:
+            freq = freq.astype(np.float32)       # the compact f16 readback
+        with record_function("host.celt_encode"):
+            return self._native.encode(freq, iparams, fparams, self.frame)
+
+    def _drain(self, ticket) -> list:
+        freq, iparams, fparams = self._d2h.fetch(ticket)
+        return [self._native_back(freq[k], iparams[k], fparams[k])
+                for k in range(freq.shape[0])]
+
+    def step(self, pcm) -> list:
+        """pcm: (S, frame, channels) float in [-1, 1] (array or tensor)
+        -> S packets."""
+        planes = self._params(self.front(pcm))
+        return self._drain(self._d2h.start(*(p[None] for p in planes)))[0]
+
+    def _front_chunk(self, pcms):
+        outs, self._state = front_scan(
+            self._consts, self._state, self._pcm(pcms, 4), self._nby,
+            self._tapset(), compact=True)
+        return self._d2h.start(*self._params(outs))
+
+    def step_chunk(self, pcms) -> list:
+        """Encode K frames a stream with one read-back: pcms is
+        (K, S, frame, channels) float in [-1, 1]; returns a list of K
+        lists of S packets. The native encoder's tapset decision feeds
+        back once a chunk (up to K frames of lag), and the spectra cross
+        to the host as float16."""
+        return self._drain(self._front_chunk(pcms))
+
+    def encode_stream(self, pcms_iter):
+        """Pipelined chunked encode: a generator over (K, S, frame,
+        channels) chunks that yields one list of S packets per FRAME.
+        The native symbol encode of chunk i runs while the device works
+        on the front of chunk i+1: they share only the tapset feedback,
+        which here lags up to 2K frames. The read-back of a chunk goes
+        into one of two sets of page-locked buffers and is waited on, by
+        its event, just before its frames are encoded."""
+        pending = None
+        for pcms in pcms_iter:
+            ticket = self._front_chunk(pcms)
+            if pending is not None:
+                yield from self._drain(pending)
+            pending = ticket
+        if pending is not None:
+            yield from self._drain(pending)
+
+
+class SilkEncodePipeline:
+    """Batched SILK encode with the device noise-shaping quantizer: S
+    per-stream encoders (`hostcodec/`, the numpy host codec in forced
+    SILK mode) run the analysis chain (Burg LPC, three-stage pitch
+    search, shaping analysis) on host threads, and every quantizer round
+    runs as ONE batched call on the device (ops/silk_nsq.py through
+    parallel/nsq_batch.py). Packets are standard SILK mono Opus packets.
+    The quantizer's lanes are independent, so a stream's packets do not
+    depend on its batch.
+
+    The batching engages for wide-band (16 kHz internal) 20 ms frames,
+    the device quantizer's shape; other rates quantize on the host
+    inline.
+    """
+
+    def __init__(self, n_streams: int, bitrate: int = 24000, *, device):
+        from .hostcodec.bitstream.packet import Mode
+        from .hostcodec.opus_encoder import APP_VOIP, OpusEncoder
+        from .parallel.nsq_batch import NsqBatchExecutor
+
+        self.S = n_streams
+        self.device = _device.as_device(device)
+        self._ex = NsqBatchExecutor(n_streams, device=self.device)
+        self.encs = []
+        for _ in range(n_streams):
+            e = OpusEncoder(48000, 1, APP_VOIP)
+            e.set_bitrate(bitrate)
+            e.force_mode = Mode.SILK
+            e.silk.nsq_fn = self._ex.hook
+            self.encs.append(e)
+
+    def step(self, pcm) -> list:
+        """pcm: (S, 960) or (S, 960, 1) float in [-1, 1] -> S packets."""
+        if isinstance(pcm, torch.Tensor):
+            pcm = pcm.detach().cpu().numpy()
+        pcm = np.asarray(pcm, np.float64)
+        if pcm.ndim == 2:
+            pcm = pcm[:, :, None]
+        if pcm.shape[0] != self.S or pcm.shape[2] != 1:
+            raise ValueError(f"pcm {pcm.shape}: expected ({self.S}, n, 1)")
+        tasks = [
+            (lambda s=s: self.encs[s].encode(pcm[s], pcm.shape[1]))
+            for s in range(self.S)
+        ]
+        with record_function("silk.encode"):
+            return self._ex.run(tasks)
