@@ -5,9 +5,10 @@
 Drives mousiki_tpu_torch's stream decoders and encoders end to end on the
 card: the plan-mode CELT decoder (48 kHz stereo, 20 ms frames), the mixed
 SILK / CELT / hybrid decoder (mono), the CELT encoder (device front +
-native symbol encoder) and the SILK encoder (host analysis + batched
-device quantizer), with the JAX package nowhere in the process (it fails
-first thing if any module of mousiki_tpu is loaded):
+native symbol encoder), the SILK encoder (host analysis + batched
+device quantizer) and the neural loss recovery (RDOVAE decode, PitchDNN +
+FARGAN concealment, the DRED encoder), with the JAX package nowhere in the
+process (it fails first thing if any module of mousiki_tpu is loaded):
 
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
   2. build, all at once: the three native host libraries (csrc/*.cpp,
@@ -79,7 +80,30 @@ first thing if any module of mousiki_tpu is loaded):
      (24 frames after 8 of warm-up, three runs in turn); and profiled
      steps (kernel launches, device busy time, host time by stage) of
      both decoders, the device-SILK lane, one encode step and one frame
-     of each quantizer.
+     of each quantizer;
+ 15. neural concealment: BatchedDeepRecovery(64) with the port's seeded
+     synthetic models, 5 conceal calls of 2 frames on bench.py's features
+     (default_rng(0), (64, 2, 20) * 0.3), against the same class on the
+     CPU in this run: every PitchDNN period within 1e-3 of the CPU's, an
+     integer period that differs (a flip) accepted only where the CPU's
+     float lies within 1e-3 of an integer (each flip printed), the PCM
+     within 1e-4 in every lane without a flip, all finite;
+ 16. RDOVAE decode: process() at S = 64 on DRED payloads (dred_encode of
+     seeded latents, 26 a stream, synthetic stats, several levels) against
+     the CPU port within 1e-4 * max|features|, and two rows against the
+     per-stream opus_dred_process on the card;
+ 17. DRED encode: the copied OpusEncoder(48000, 1) at 24 kbit/s with
+     set_dred_duration(40), its RDOVAE encoder on the card (the default:
+     no model given), 2 streams x 10 frames; DRED parses from at least 8
+     packets a stream, every packet (its padding removed: the native host
+     stage takes single-frame packets) decodes to finite PCM in
+     OpusStreamPipeline on the card, and the share of packets byte-equal to
+     the CPU port's is printed;
+ 18. neural timing: dred_recovery_x_s64 as bench.py's bench_deep_recovery
+     defines it (S = 64, 2 frames a call, 10 calls a window, the median of
+     the windows; 3 windows here, not 6, to save time), the same at
+     S = 256, the ms of a process call at S = 64 (median of 3), one
+     profiled conceal call at each width and one profiled process call.
 
 Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
@@ -109,7 +133,13 @@ from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
 from mousiki_tpu_torch._device import require_cuda
 from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import deemphasis as deemph
+from mousiki_tpu_torch import dred
+from mousiki_tpu_torch.hostcodec.bitstream.repacketizer import \
+    opus_packet_unpad
+from mousiki_tpu_torch.hostcodec.opus_encoder import OpusEncoder
+from mousiki_tpu_torch.models import dred as rdovae
 from mousiki_tpu_torch.ops import encode_front, silk_nsq
+from mousiki_tpu_torch.parallel.deep_recovery import BatchedDeepRecovery
 from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltEncodePipeline,
                                         CeltStreamPipeline,
                                         OpusStreamPipeline,
@@ -209,20 +239,27 @@ def _device_ms(fn, reps: int = 20, match: str | None = None,
     events also count. `between` runs before each call, unmeasured when
     `match` leaves its kernels out. The profiler now and then drops a
     kernel event, so the time is the mean kernel duration times the
-    kernels a call runs."""
+    kernels a call runs; a window in which it saw under half of them is
+    measured again, up to three windows."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if between is not None:
-                between()
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == cuda and (match is None or match in ev.name)]
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == cuda
+              and (match is None or match in ev.name)]
+        if len(us) >= reps // 2:
+            break
+        print(f"[profiler] window {window}: {len(us)} kernels seen in "
+              f"{reps} calls; measuring again", flush=True)
     check(len(us) >= reps // 2,
           f"profiler saw {len(us)} kernels in {reps} calls")
     per_call = max(1, round(len(us) / reps))
@@ -482,7 +519,7 @@ def _time_stream(pipe, batch_fn, warm=3, steps=12, **kwargs):
 
 # record_function spans of the port
 RANGES = ("host.", "plan.", "plc.", "synthesis.", "silk.", "mixed.",
-          "front.", "nsq.")
+          "front.", "nsq.", "pitchdnn", "fargan.", "rdovae.")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
 
@@ -943,6 +980,187 @@ def phase_encode_timing(dev, streams, nsq_batches):
             **_profile_step(lambda: fn(*args, **NSQ_KW), name))
 
 
+# ------------------------------------------------------- neural recovery
+
+S_NEURAL = 64                 # bench.py bench_deep_recovery's S
+NEURAL_PCM_TOL = 1e-4         # tests/test_deep_recovery.py:92
+PERIOD_TOL = 1e-3             # a flip is excused within this of an integer
+
+
+def _bench_features(S):
+    """bench.py bench_deep_recovery's features: (S, 2, 20) * 0.3."""
+    return (np.random.default_rng(0).standard_normal((S, 2, 20))
+            .astype(np.float32) * 0.3)
+
+
+def phase_neural_conceal(dev):
+    S, calls = S_NEURAL, 5
+    feats = _bench_features(S)
+    gpu = BatchedDeepRecovery(S, device=dev)
+    cpu = BatchedDeepRecovery(S, device="cpu")
+    flips, flipped, worst_period = [], np.zeros(S, bool), 0.0
+    got, want = [], []
+    for k in range(calls):
+        got.append(gpu.conceal(feats).cpu().numpy())
+        want.append(cpu.conceal(feats).numpy())
+        pg = gpu.last_periods.cpu().numpy()
+        pc = cpu.last_periods.numpy()
+        worst_period = max(worst_period, float(np.abs(pg - pc).max()))
+        for s, f in zip(*np.nonzero(pg.astype(np.int32)
+                                    != pc.astype(np.int32))):
+            dist = float(abs(pc[s, f] - np.round(pc[s, f])))
+            flips.append(dict(call=k, lane=int(s), frame=int(f),
+                              card=float(pg[s, f]), cpu=float(pc[s, f]),
+                              cpu_distance_from_integer=dist))
+            print(f"[neural_conceal] period flip {flips[-1]}", flush=True)
+            check(dist < PERIOD_TOL, f"period flip far from an integer: "
+                  f"{flips[-1]}")
+            flipped[s] = True
+    check(worst_period <= PERIOD_TOL,
+          f"PitchDNN periods {worst_period} from the CPU's")
+    got, want = np.concatenate(got, 1), np.concatenate(want, 1)
+    check(got.shape == (S, calls * 320), f"conceal output {got.shape}")
+    check(bool(np.isfinite(got).all()), "non-finite concealment PCM")
+    err = np.abs(got - want).max(axis=1)
+    check(bool((err[~flipped] <= NEURAL_PCM_TOL).all()),
+          f"concealment PCM {err[~flipped].max()} from the CPU's in a lane "
+          "without a period flip")
+    say("neural_conceal", streams=S, calls=calls, frames_a_call=2,
+        period_flips=len(flips), lanes_with_flips=int(flipped.sum()),
+        worst_period_diff=worst_period,
+        worst_pcm_err_no_flip=float(err[~flipped].max()),
+        bar=NEURAL_PCM_TOL, max_abs_pcm=float(np.abs(got).max()))
+
+
+def _seeded_dreds(S):
+    """S OpusDred from dred_encode of seeded latents (26 a stream) at
+    several quantizer levels, parsed back: the budget cuts some short."""
+    stats = dred.synthetic_stats()
+    rng = np.random.default_rng(11)
+    out = []
+    for s in range(S):
+        lat = [(rng.standard_normal(24) * 1.5).astype(np.float32)
+               for _ in range(26)]
+        st = rng.standard_normal(24).astype(np.float32)
+        payload = dred.dred_encode(lat, st, stats, q0=3 + s % 10,
+                                   dq=s % 8, offset=0, max_bytes=160)
+        out.append(dred.OpusDred(dred.dred_parse(payload, stats), payload))
+    return out
+
+
+def phase_rdovae_decode(dev):
+    S = S_NEURAL
+    dreds = _seeded_dreds(S)
+    gpu = BatchedDeepRecovery(S, device=dev)
+    feats, n10 = gpu.process(dreds)
+    want, want_n = BatchedDeepRecovery(S, device="cpu").process(dreds)
+    check(bool((n10 == want_n).all()), "valid frame counts differ")
+    check(bool(np.isfinite(feats).all()), "non-finite features")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(feats - want).max())
+    check(err <= 1e-4 * scale, f"features {err} from the CPU port's "
+          f"(bar 1e-4 * {scale})")
+    rows = {}
+    for s in (0, S - 1):
+        one = np.stack(dred.opus_dred_process(dreds[s],
+                                              model=gpu.dec_model))
+        d = float(np.abs(feats[s, feats.shape[1] - n10[s]:] - one).max())
+        check(d <= 1e-4 * scale, f"row {s}: {d} from opus_dred_process")
+        rows[f"row{s}_vs_opus_dred_process"] = d
+    say("rdovae_decode", streams=S, qframes=int(n10.max()) // 4,
+        qframes_min=int(n10.min()) // 4, worst_abs_err_vs_cpu=err,
+        bar=1e-4 * scale, **rows)
+    return dreds
+
+
+def _speechish(n, seed):
+    """The signal of the DRED tests (tests/test_deep_recovery.py)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 48000
+    f0 = 120 + 30 * np.sin(2 * np.pi * 2.3 * t)
+    sig = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 48000)
+    sig *= 0.6 + 0.4 * np.sin(2 * np.pi * 4.0 * t) ** 2
+    sig += 0.01 * rng.standard_normal(n)
+    return sig.astype(np.float32)[:, None]
+
+
+def _dred_encoder(model=None):
+    enc = OpusEncoder(48000, 1)
+    enc.set_bitrate(24000)
+    enc.set_dred_duration(40, model=model)
+    return enc
+
+
+def phase_dred_encode(dev):
+    S, F = 2, 10
+    t0 = time.perf_counter()
+    cpu_model = rdovae.random_enc(torch.Generator().manual_seed(0),
+                                  device="cpu")
+    packets, equal, with_dred = [], 0, []
+    for s in range(S):
+        card, host = _dred_encoder(), _dred_encoder(cpu_model)
+        check(card._dred.device.type == "cuda",
+              f"the DRED encoder runs on {card._dred.device}")
+        sig = _speechish(FRAME * F, seed=10 + s)
+        pk = []
+        for f in range(F):
+            pcm = sig[f * FRAME:(f + 1) * FRAME]
+            pk.append(card.encode(pcm, FRAME))
+            equal += pk[-1] == host.encode(pcm, FRAME)
+        packets.append(pk)
+        with_dred.append(sum(dred.opus_dred_parse(p) is not None
+                             for p in pk))
+    check(min(with_dred) >= 8, f"DRED parses from {with_dred} packets")
+    dec = OpusStreamPipeline(S, channels=1, device=dev)
+    for f in range(F):
+        out = dec.step([opus_packet_unpad(packets[s][f]) for s in range(S)])
+        check(out.shape == (S, FRAME, 1) and bool(torch.isfinite(out).all()),
+              f"DRED packets of frame {f} decode to {tuple(out.shape)}")
+    say("dred_encode", streams=S, frames=F, packets_with_dred=with_dred,
+        packets_equal_to_cpu_port=equal / (S * F),
+        seconds=round(time.perf_counter() - t0, 2))
+
+
+def phase_neural_timing(dev, dreds):
+    """bench.py's dred_recovery_x_s64 (3 windows, not 6) at S = 64 and
+    S = 256, process() timed at S = 64, and the profiles of a conceal
+    call at each width and of one process call."""
+    n_steps, windows = 10, 3
+    recs = {}
+    for S in (S_NEURAL, 256):
+        rec = recs[S] = BatchedDeepRecovery(S, device=dev)
+        feats = _bench_features(S)
+        rec.conceal(feats)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(windows):
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                rec.conceal(feats)
+            torch.cuda.synchronize()
+            rates.append(S * n_steps * 0.02 / (time.perf_counter() - t0))
+        say(f"timing_dred_recovery_x_s{S}", streams=S,
+            realtime_x=float(np.median(rates)),
+            realtime_x_windows=rates,
+            ms_per_call=S * 0.02 / float(np.median(rates)) * 1e3)
+    rec = recs[S_NEURAL]
+    runs = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        rec.process(dreds)          # ends in its read-back
+        runs.append((time.perf_counter() - t0) * 1e3)
+    say("timing_process_S64", streams=S_NEURAL, ms_per_call=float(
+        np.median(runs)), ms_per_call_runs=runs)
+    for S, r in recs.items():
+        feats = _bench_features(S)
+        _profile_step(lambda: r.conceal(feats))
+        say(f"profile_conceal_S{S}", **_profile_step(
+            lambda: r.conceal(feats), f"conceal_S{S}"))
+    rec.process(dreds)
+    say("profile_process_S64", **_profile_step(lambda: rec.process(dreds),
+                                                "process_S64"))
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -972,6 +1190,10 @@ def main() -> int:
     phase_encode_silk(dev, mono)
     phase_timing(dev, streams, mono)
     phase_encode_timing(dev, streams, nsq_batches)
+    phase_neural_conceal(dev)
+    dreds = phase_rdovae_decode(dev)
+    phase_dred_encode(dev)
+    phase_neural_timing(dev, dreds)
     # one row for each main path's shape: the path's launches (counted
     # from 0 just before it ran) beside what phase 3 measured at that shape
     kernels = {"kernels": [{

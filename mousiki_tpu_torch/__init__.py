@@ -5,12 +5,16 @@ and `OpusStreamPipeline` (mixed SILK / CELT / hybrid packets). Encoders:
 `CeltEncodePipeline` (the device front of `ops/encode_front.py` feeding
 the native symbol encoder) and `SilkEncodePipeline` (per-stream host
 encoders whose noise-shaping quantizer calls `parallel/nsq_batch.py`
-batches onto `ops/silk_nsq.py`).
+batches onto `ops/silk_nsq.py`). Neural loss recovery:
+`BatchedDeepRecovery` (parallel/deep_recovery.py: the DRED latents of S
+streams decoded to features by the RDOVAE decoder, and concealment audio
+synthesized by PitchDNN + FARGAN, models/), beside the single-stream DRED
+API (dred.py), which the copied `OpusEncoder` uses to embed DRED.
 
 The port stands alone: it keeps its own copies of what it needs from
 `mousiki_tpu` (the native C++ host stages in `csrc/`, the 48 kHz mode, the
 MDCT bases, the plan transforms, the packet parser, the resampler tables,
-and under `hostcodec/` the numpy host codec the SILK encoder drives) and
+and under `hostcodec/` the numpy host codec the encoders drive) and
 imports nothing of that package. The device half is PyTorch ops on
 tensors, with the de-emphasis tail (IIR, scale, interleave) as a
 hand-written CUDA kernel (`ops/deemphasis.py`, `csrc/deemphasis.cu`). The
@@ -20,13 +24,16 @@ Importing this package loads nothing heavy; `torch` loads with the first
 submodule that needs it, and no module here imports `jax`.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
-__all__ = ["CeltEncodePipeline", "CeltStreamPipeline", "OpusStreamPipeline",
-           "SilkEncodePipeline", "SilkStreamPipeline"]
+__all__ = ["BatchedDeepRecovery", "CeltEncodePipeline", "CeltStreamPipeline",
+           "OpusStreamPipeline", "SilkEncodePipeline", "SilkStreamPipeline"]
 
 
 def __getattr__(name):
+    if name == "BatchedDeepRecovery":
+        from .parallel.deep_recovery import BatchedDeepRecovery
+        return BatchedDeepRecovery
     if name in __all__:
         from . import pipeline
         return getattr(pipeline, name)

@@ -11,6 +11,12 @@ is reached by feeding both the same packets. The encode side carries the
 CELT front's state (a dict in the reference, `FrontState` here) and the
 noise-shaping quantizers' states (`NsqDevState`, `NsqDelDecState`: the
 same eight fields on both sides).
+
+The neural recovery path has weights. The reference's models are
+NamedTuples of arrays (`Linear`, `FarganModel`, `PitchDnn`, `RdovaeEnc`,
+`RdovaeDec`); the `*_from_numpy` functions below build the port's modules
+from them on a device, so that both sides run the same weights, and
+`FarganState` crosses in both directions.
 """
 
 from __future__ import annotations
@@ -21,6 +27,10 @@ import numpy as np
 import torch
 
 from . import _device
+from .models import fargan
+from .models.deep_plc import PitchDnn
+from .models.dred import RdovaeDec, RdovaeEnc
+from .models.nnet import Linear
 from .ops.encode_front import FrontState
 from .ops.plc import PlcState
 from .ops.silk_nsq import NsqDelDecState, NsqDevState
@@ -113,3 +123,60 @@ def mixed_state_to_numpy(pipe) -> MixedState:
         prev_fs=pipe.prev_fs.detach().cpu().numpy(),
         silk_dev_state=(None if pipe.silk_dev_state is None
                         else arrays(pipe.silk_dev_state)))
+
+
+def linear_from_numpy(lin, device) -> Linear:
+    """The reference's Linear (w (out, in), b or None, diag or None)."""
+    def arr(a):
+        return None if a is None else np.asarray(a)
+
+    return Linear(np.asarray(lin.w), arr(lin.b), arr(lin.diag),
+                  device=device)
+
+
+def fargan_from_numpy(model, device) -> fargan.FarganModel:
+    return fargan.FarganModel(
+        np.asarray(model.cond_pembed),
+        {name: linear_from_numpy(getattr(model, name), device)
+         for name in fargan.LAYERS}, device=device)
+
+
+def pitchdnn_from_numpy(model, device) -> PitchDnn:
+    return PitchDnn(*(linear_from_numpy(lin, device) for lin in model))
+
+
+def _pairs(grus, device):
+    return [(linear_from_numpy(gi, device), linear_from_numpy(gr, device))
+            for gi, gr in grus]
+
+
+def rdovae_enc_from_numpy(model, device) -> RdovaeEnc:
+    return RdovaeEnc(
+        dense1=linear_from_numpy(model.dense1, device),
+        grus=_pairs(model.grus, device),
+        convs=[linear_from_numpy(c, device) for c in model.convs],
+        zdense=linear_from_numpy(model.zdense, device),
+        gdense1=linear_from_numpy(model.gdense1, device),
+        gdense2=linear_from_numpy(model.gdense2, device))
+
+
+def rdovae_dec_from_numpy(model, device) -> RdovaeDec:
+    return RdovaeDec(
+        hidden_init=linear_from_numpy(model.hidden_init, device),
+        gru_init=linear_from_numpy(model.gru_init, device),
+        dense1=linear_from_numpy(model.dense1, device),
+        grus=_pairs(model.grus, device),
+        glus=[linear_from_numpy(g, device) for g in model.glus],
+        convs=[linear_from_numpy(c, device) for c in model.convs],
+        output=linear_from_numpy(model.output, device))
+
+
+def fargan_state_from_numpy(state, device) -> fargan.FarganState:
+    """The seven fields of a FarganState (numpy arrays, or anything
+    np.asarray reads) on `device`."""
+    dev = _device.as_device(device)
+    return fargan.FarganState(*(_tensor(v, dev) for v in state))
+
+
+def fargan_state_to_numpy(state: fargan.FarganState) -> fargan.FarganState:
+    return fargan.FarganState(*(v.detach().cpu().numpy() for v in state))

@@ -1,7 +1,8 @@
 """mousiki_tpu_torch constants and package hygiene: the tables, mode,
 MDCT bases, plan transforms, arena layouts, packet parser, native
-sources and the numpy host codec (`hostcodec/`) copied out of the JAX
-package equal their originals, the port's device constants
+sources, the numpy host codec (`hostcodec/`) and the numpy parts of the
+neural models copied out of the JAX package equal their originals, the
+port's device constants
 equal the JAX ones, the package imports neither jax nor anything of
 mousiki_tpu, and the de-emphasis wrapper takes its plain path on CPU
 tensors."""
@@ -179,6 +180,12 @@ _HOSTCODEC_OWN = {
                    "package's top-level __init__)",
     "silk/host_native.py": "finds the native SILK library through the "
                            "port's ops/_build.load_host, not native/",
+    "dred.py": "re-exports the port's DredEncoder (mousiki_tpu_torch/dred.py)",
+    "models/__init__.py": "the subpackage of the shim below",
+    "models/dred.py": "re-exports DRED_EXTENSION_ID of the port's "
+                      "models/dred.py",
+    "ops/input_resampler.py": "re-exports the port's ArbitraryResampler "
+                              "(mousiki_tpu_torch/ops/input_resampler.py)",
 }
 
 
@@ -225,13 +232,77 @@ def test_hostcodec_file_equals_original(rel):
 
 
 def test_hostcodec_is_the_encoder_closure():
+    """The closure of OpusEncoder: its SILK encoder (38 files), the
+    modules its other branches import (input resampler, repacketizer,
+    extensions, tonality analysis, DRED), and nothing else."""
     files = _hostcodec_files()
-    assert len(files) == 38 and set(_HOSTCODEC_OWN) <= set(files)
+    assert len(files) == 46 and set(_HOSTCODEC_OWN) <= set(files)
     for rel in ("opus_encoder.py", "silk/encoder.py", "silk/nsq_del_dec.py",
                 "silk/noise_shape.py", "celt/encoder.py",
-                "bitstream/entcode.py"):
+                "bitstream/entcode.py", "bitstream/extensions.py",
+                "bitstream/repacketizer.py", "analysis.py",
+                "analysis_tables.py", "dred.py", "models/dred.py",
+                "ops/input_resampler.py"):
         assert rel in files
-    assert "dred.py" not in files
+
+
+@pytest.mark.parametrize("rel", ["models/lpcnet_features.py"])
+def test_port_file_equals_original(rel):
+    """Files of the port outside hostcodec/ that are byte copies."""
+    with open(os.path.join(_ROOT, "mousiki_tpu_torch", rel), "rb") as fh:
+        got = fh.read()
+    with open(os.path.join(_ROOT, "mousiki_tpu", rel), "rb") as fh:
+        assert got == fh.read()
+
+
+def test_neural_numpy_parts_equal_originals():
+    """The numpy parts of models/nnet.py, models/dred.py and
+    ops/input_resampler.py, held to the reference's by behaviour: the
+    weight blob written and parsed alike, the densifiers, the DRED
+    constants and synthetic stats, the resampler's filter banks."""
+    from mousiki_tpu.models import dred as jax_dred
+    from mousiki_tpu.models import nnet as jax_nnet
+    from mousiki_tpu.ops import input_resampler as jax_rs
+    from mousiki_tpu_torch.models import dred, nnet
+    from mousiki_tpu_torch.ops import input_resampler as rs
+
+    rng = np.random.default_rng(3)
+    arrays = {"dense1_weights_float": rng.standard_normal(12).astype(
+                  "<f4").tobytes(),
+              "dense1_bias": np.ones(3, "<f4").tobytes(),
+              "x" * 40: b"\x01\x02", "odd": bytes(range(65))}
+    blob = nnet.write_weight_blob(arrays)
+    assert blob == jax_nnet.write_weight_blob(arrays)
+    assert nnet.parse_weight_blob(blob) == jax_nnet.parse_weight_blob(blob) \
+        == arrays
+    for bad in (blob[:40], blob[:-100]):
+        for parse in (nnet.parse_weight_blob, jax_nnet.parse_weight_blob):
+            with pytest.raises(ValueError):
+                parse(bad)
+    w8 = rng.integers(-127, 128, 4 * 32, np.int8)
+    scale = rng.uniform(1e-3, 1e-2, 16).astype(np.float32)
+    idx = np.array([2, 0, 8, 2, 4, 12], np.int32)
+    np.testing.assert_array_equal(
+        nnet._densify_sparse8x4(w8, idx, 16, scale),
+        jax_nnet._densify_sparse8x4(w8, idx, 16, scale))
+    np.testing.assert_array_equal(
+        nnet._densify_dense8x4(w8, 16, 8, scale),
+        jax_nnet._densify_dense8x4(w8, 16, 8, scale))
+    for name in [n for n in dir(jax_dred) if n.startswith(("DRED_", "_ENC",
+                                                           "_DEC", "_G",
+                                                           "_CONV"))]:
+        assert getattr(dred, name) == getattr(jax_dred, name), name
+    for seed in (0, 1, 7):
+        for a, b in zip(dred.synthetic_stats(seed),
+                        jax_dred.synthetic_stats(seed)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    assert rs._QUALITY == jax_rs._QUALITY
+    for rate, out, q in ((16000, 48000, 5), (44100, 48000, 7),
+                         (48000, 16000, 5), (96000, 48000, 3)):
+        for got, want in zip(rs._design(rate, out, q),
+                             jax_rs._design(rate, out, q)):
+            np.testing.assert_array_equal(got, want)
 
 
 def test_encode_front_constants_equal_originals():
@@ -348,7 +419,21 @@ for name in names + ["golden_streams", "chip_smoke"]:
 for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.ops.encode_front",
              "mousiki_tpu_torch.ops.silk_nsq",
-             "mousiki_tpu_torch.parallel.nsq_batch"):
+             "mousiki_tpu_torch.parallel.nsq_batch",
+             "mousiki_tpu_torch.models.nnet",
+             "mousiki_tpu_torch.models.fargan",
+             "mousiki_tpu_torch.models.deep_plc",
+             "mousiki_tpu_torch.models.dred",
+             "mousiki_tpu_torch.models.lpcnet_features",
+             "mousiki_tpu_torch.ops.input_resampler",
+             "mousiki_tpu_torch.dred",
+             "mousiki_tpu_torch.parallel.deep_recovery",
+             "mousiki_tpu_torch.hostcodec.dred",
+             "mousiki_tpu_torch.hostcodec.models.dred",
+             "mousiki_tpu_torch.hostcodec.ops.input_resampler",
+             "mousiki_tpu_torch.hostcodec.analysis",
+             "mousiki_tpu_torch.hostcodec.bitstream.extensions",
+             "mousiki_tpu_torch.hostcodec.bitstream.repacketizer"):
     assert name in sys.modules, name
 assert not any(m.split(".")[0] in _BLOCKED for m in sys.modules)
 print("imported", len(names))
@@ -362,7 +447,7 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 66, proc.stdout
+    assert n >= 80, proc.stdout
 
 
 def test_deemphasis_cpu_takes_plain_path():
@@ -407,7 +492,12 @@ def test_deemphasis_kernel_matches_plain_on_gpu():
 
 def test_device_is_required():
     """No default device: leaving it out raises instead of running on
-    the CPU."""
+    the CPU. The entry points that host code builds without a device
+    (DredEncoder, opus_dred_process) take their model's, and without a
+    model the GPU, which raises where there is none."""
+    from mousiki_tpu_torch import dred
+    from mousiki_tpu_torch.models import deep_plc, fargan, nnet
+    from mousiki_tpu_torch.parallel.deep_recovery import BatchedDeepRecovery
     from mousiki_tpu_torch.pipeline import CeltStreamPipeline
     with pytest.raises(TypeError):
         CeltStreamPipeline(3)
@@ -415,3 +505,24 @@ def test_device_is_required():
         synthesis.make_consts(960, None)
     with pytest.raises(ValueError):
         plc.init_plc_state(3, 2, None)
+    with pytest.raises(TypeError):
+        BatchedDeepRecovery(3)
+    with pytest.raises(ValueError):
+        BatchedDeepRecovery(3, device=None)
+    with pytest.raises(TypeError):
+        deep_plc.DeepPlcState()
+    with pytest.raises(TypeError):
+        fargan.random_model(torch.Generator())
+    with pytest.raises(TypeError):
+        nnet.Linear(np.zeros((2, 2)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dred.DredEncoder(48000, 1)
+        stats = dred.synthetic_stats()
+        payload = dred.dred_encode([np.zeros(24)], np.zeros(24), stats)
+        parsed = dred.OpusDred(dred.dred_parse(payload, stats), payload)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dred.opus_dred_process(parsed)
+    cpu_model = dred.M.random_enc(torch.Generator().manual_seed(0),
+                                  device="cpu")
+    assert dred.DredEncoder(48000, 1, model=cpu_model).device.type == "cpu"

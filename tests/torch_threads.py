@@ -1,5 +1,6 @@
 """Helpers of the port's CPU tests: a fixture that gives PyTorch one
-intra-op thread, and a counter of dispatched tensor ops.
+intra-op thread, a counter of dispatched tensor ops, and seeded weights
+for the JAX package's neural models.
 
 The port's eager steps are tens of thousands of tiny ops. With several
 test workers on one machine, PyTorch's intra-op thread pools (one thread a
@@ -43,3 +44,23 @@ class CountOps(TorchDispatchMode):
         if not any(v in str(func) for v in _VIEW_OPS):
             self.n += 1
         return func(*args, **(kwargs or {}))
+
+
+def seeded_jax_model(make, seed: int, scale):
+    """A model of the JAX package (mousiki_tpu.models: fargan.random_model,
+    deep_plc.random_pitchdnn, dred.random_enc / random_dec) with the shapes
+    `make` gives, its matrices N(0, 1) * scale(shape) drawn from numpy's
+    default_rng(seed) and its vectors zero. jax.random's own draws take
+    seconds per model on the CPU (a compile per shape); the port's tests
+    carry these arrays across to the port instead."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    shapes = jax.eval_shape(make, jax.random.PRNGKey(0))
+    leaves, tree = jax.tree_util.tree_flatten(shapes)
+    rng = np.random.default_rng(seed)
+    vals = [jnp.asarray((rng.standard_normal(leaf.shape) * scale(leaf.shape))
+                        .astype(np.float32)) if len(leaf.shape) == 2
+            else jnp.zeros(leaf.shape, jnp.float32) for leaf in leaves]
+    return jax.tree_util.tree_unflatten(tree, vals)
