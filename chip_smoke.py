@@ -6,9 +6,11 @@ Drives mousiki_tpu_torch's stream decoders and encoders end to end on the
 card: the plan-mode CELT decoder (48 kHz stereo, 20 ms frames), the mixed
 SILK / CELT / hybrid decoder (mono), the CELT encoder (device front +
 native symbol encoder), the SILK encoder (host analysis + batched
-device quantizer) and the neural loss recovery (RDOVAE decode, PitchDNN +
-FARGAN concealment, the DRED encoder), with the JAX package nowhere in the
-process (it fails first thing if any module of mousiki_tpu is loaded):
+device quantizer), the neural loss recovery (RDOVAE decode, PitchDNN +
+FARGAN concealment, the DRED encoder), the CELT decoder with its Python
+host and the single-stream API (OpusDecoder with deep PLC and DRED
+decode), with the JAX package nowhere in the process (it fails first
+thing if any module of mousiki_tpu is loaded):
 
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
   2. build, all at once: the three native host libraries (csrc/*.cpp,
@@ -16,8 +18,9 @@ process (it fails first thing if any module of mousiki_tpu is loaded):
      kernel (csrc/deemphasis.cu, nvcc), each with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
-     the CELT and the mixed main path give it, and (256, 2, 120),
-     (7, 1, 960), (3, 2, 240); bar 1e-4 * max|pcm|. For
+     the CELT and the mixed main path give it, (32, 2, 960), the
+     Python-host CELT path's (phase 19), and (256, 2, 120), (7, 1, 960),
+     (3, 2, 240); bar 1e-4 * max|pcm|. For
      each: the kernel's device time (torch.profiler; input in L2 as on the
      main path, and L2 evicted by a 128 MB read before each launch), its
      HBM bound and bound share, the plain
@@ -103,11 +106,33 @@ process (it fails first thing if any module of mousiki_tpu is loaded):
      defines it (S = 64, 2 frames a call, 10 calls a window, the median of
      the windows; 3 windows here, not 6, to save time), the same at
      S = 256, the ms of a process call at S = 64 (median of 3), one
-     profiled conceal call at each width and one profiled process call.
+     profiled conceal call at each width and one profiled process call;
+ 19. Python-host CELT: CeltStreamPipeline(32, 2, use_native=False), one
+     copied Python CeltDecoder a stream in front of the device synthesis,
+     stream s playing golden stereo stream s % 3 for 12 frames; every
+     stream within 2e-4 of the golden PCM, the kernel launched once a step
+     by the path itself (counts reset just before), the ms a step;
+ 20. single-stream API (host numpy code, no libopus): the port's
+     OpusDecoder over all 8 golden streams (96 packets), every final range
+     equal to the fixture's and the PCM within 2e-4 of the golden PCM;
+     codec.Decoder equal to OpusDecoder on one stream; a 5.1
+     MultistreamEncoder.surround -> MultistreamDecoder round trip on a
+     seeded signal, finite; an OggOpusWriter -> OpusFile round trip of one
+     golden stream, packets equal;
+ 21. deep PLC and DRED decode on the card: the port's OpusDecoder(48000, 1)
+     with set_deep_plc on the port's seeded FARGAN and PitchDNN and
+     set_dred_models on its seeded RDOVAE decoder, on the card and on the
+     CPU side by side, over the DRED packets of the copied OpusEncoder
+     (as phase 17): 8 good packets, 2 lost and decoded from the DRED of
+     the next one (dred_parse, dred_process, dred_decode), that packet,
+     one more lost frame concealed without DRED; features and PCM within
+     1e-4 of the CPU's, each pitch period flip printed and excused only
+     within 1e-3 of an integer; the launches of one deep-PLC
+     decode(None, 960).
 
 Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
-each main path's shape, every number of a row measured at that shape); the last
+each path's shape, every number of a row measured at that shape); the last
 line is {"ok": true, "device": {...}}. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
 the profiled steps to DIR/profile_*.txt.
@@ -137,6 +162,7 @@ from mousiki_tpu_torch import dred
 from mousiki_tpu_torch.hostcodec.bitstream.repacketizer import \
     opus_packet_unpad
 from mousiki_tpu_torch.hostcodec.opus_encoder import OpusEncoder
+from mousiki_tpu_torch.models import deep_plc, fargan
 from mousiki_tpu_torch.models import dred as rdovae
 from mousiki_tpu_torch.ops import encode_front, silk_nsq
 from mousiki_tpu_torch.parallel.deep_recovery import BatchedDeepRecovery
@@ -153,10 +179,13 @@ KERNEL_REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 S_MAIN, S_WIDE = 256, 1024      # streams of the main paths / the wide timing
-# (S, C, N) of the kernel's input on the CELT and on the mixed main path
+S_PYHOST = 32                   # streams of the Python-host CELT path
+# (S, C, N) of the kernel's input on the CELT and on the mixed main path,
+# and on the Python-host CELT path
 CELT_SHAPE, MIXED_SHAPE = (S_MAIN, 2, FRAME), (S_MAIN, 1, FRAME)
-KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, (256, 2, 120), (7, 1, 960),
-                 (3, 2, 240))
+PYHOST_SHAPE = (S_PYHOST, 2, FRAME)
+KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, PYHOST_SHAPE, (256, 2, 120),
+                 (7, 1, 960), (3, 2, 240))
 TIMING_REPEATS = 3
 ENCODE_BITRATE = 128000
 # the card's CELT encode -> decode round trip may fall this far (dB) under
@@ -387,7 +416,8 @@ def _loss_phase(phase, dev, make_pipe, batch_fn):
 
 
 def phase_loss(dev, streams):
-    _loss_phase("loss", dev, lambda S, d: CeltStreamPipeline(S, device=d),
+    _loss_phase("loss", dev,
+                lambda S, d: CeltStreamPipeline(S, use_plan=True, device=d),
                 partial(frame_batch, streams))
 
 
@@ -405,11 +435,11 @@ def phase_celt_modes(dev, streams):
     lost = np.zeros((S, F), bool)
     lost[::9, 7] = True                      # concealment inside a chunk
     frames = [frame_batch(streams, S, f, lost[:, f]) for f in range(F)]
-    stepped = CeltStreamPipeline(S, device=dev)
+    stepped = CeltStreamPipeline(S, use_plan=True, device=dev)
     want = [stepped.step(batch) for batch in frames]
 
     def run(mode):
-        pipe = CeltStreamPipeline(S, device=dev)
+        pipe = CeltStreamPipeline(S, use_plan=True, device=dev)
         if mode == "scanned":
             return list(pipe.decode_frames_scanned(frames))
         if mode == "chunk4":
@@ -580,16 +610,17 @@ def phase_timing(dev, streams, mono):
     for S in (S_MAIN, S_WIDE):
         celt_batch = partial(frame_batch, streams, S)
         mixed_batch = partial(frame_batch, mono, S, packets=True)
-        pipe = CeltStreamPipeline(S, device=dev)
+        pipe = CeltStreamPipeline(S, use_plan=True, device=dev)
         mixed = OpusStreamPipeline(S, channels=1, device=dev)
         modes = {f"S{S}": (pipe, celt_batch, {}),
                  f"mixed_S{S}": (mixed, mixed_batch, {})}
         if S == S_MAIN:
-            overlapped = CeltStreamPipeline(S, device=dev)
+            overlapped = CeltStreamPipeline(S, use_plan=True, device=dev)
             overlapped.overlap_host = True
             modes["S256_overlap_host"] = (overlapped, celt_batch, {})
-            modes["S256_chunk4"] = (CeltStreamPipeline(S, device=dev),
-                                    celt_batch, {"chunk": 4})
+            modes["S256_chunk4"] = (
+                CeltStreamPipeline(S, use_plan=True, device=dev),
+                celt_batch, {"chunk": 4})
         # the modes take turns, so that a slow stretch of the shared host
         # does not fall on one of them alone
         runs: dict = {name: [] for name in modes}
@@ -710,7 +741,8 @@ def _encode_round_trip(device, streams, S, chunk=None):
         sets = enc._d2h._sets
         check(all(s is not None and all(h.is_pinned() for h in s)
                   for s in sets), "the encoder's read-back is not pinned")
-    dec = CeltStreamPipeline(S, channels=2, device=device)
+    dec = CeltStreamPipeline(S, channels=2, use_plan=True,
+                              device=device)
     out = []
     for pkts in frames:
         check(len(pkts) == S and all(p is not None and len(p) > 10
@@ -1161,6 +1193,195 @@ def phase_neural_timing(dev, dreds):
                                                 "process_S64"))
 
 
+# ------------------------------------------------- the single-stream API
+
+
+def phase_python_host(dev, streams):
+    """The Python host decoder in front of the device synthesis."""
+    S, F = S_PYHOST, 12
+    pipe = CeltStreamPipeline(S, 2, use_native=False, device=dev)
+    check(pipe._native is None and len(pipe._py_hosts) == S,
+          "use_native=False did not take the Python host")
+    deemph.reset_launches()
+    worst, launches, step_ms = 0.0, [], []
+    for f in range(F):
+        t0 = time.perf_counter()
+        pcm = pipe.step(frame_batch(streams, S, f), FRAME)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(deemph.deemphasis_launches)
+        got = pcm.cpu().numpy()
+        check(got.shape == (S, FRAME, 2), f"pcm shape {got.shape}")
+        check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
+        err = np.abs(got - golden_pcm(streams, S, f)).max(axis=(1, 2))
+        check(bool((err <= GOLDEN_TOL).all()),
+              f"Python host frame {f}: {int((err > GOLDEN_TOL).sum())} "
+              f"streams beyond {GOLDEN_TOL}, worst {err.max()}")
+        worst = max(worst, float(err.max()))
+    n = deemph.deemphasis_launches
+    check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
+          f"deemphasis launches per Python-host step {launches}")
+    median = float(np.median(step_ms[2:]))
+    say("python_host", streams=S, frames=F, worst_abs_err_vs_golden=worst,
+        bar=GOLDEN_TOL, deemphasis_launches=n,
+        launches_after_each_step=launches, ms_per_step=median,
+        ms_per_step_runs=step_ms, ms_per_stream_frame=median / S,
+        realtime_x=S * 0.02 / (median / 1e3))
+    return n
+
+
+def phase_single_stream():
+    """The single-stream API of hostcodec/ through the package's top-level
+    names, on the golden streams."""
+    import mousiki_tpu_torch as api
+    from golden_streams import load_all
+    t0 = time.perf_counter()
+    streams = load_all()
+    worst, packets = 0.0, 0
+    for st in streams:
+        channels = st.pcm.shape[1]
+        dec = api.OpusDecoder(48000, channels)
+        for f, pkt in enumerate(st.packets):
+            pcm = dec.decode(pkt, FRAME)
+            check(dec.final_range == st.ranges[f],
+                  f"{st.name} packet {f}: final range {dec.final_range}, "
+                  f"fixture {st.ranges[f]}")
+            err = float(np.abs(pcm - st.pcm[f * FRAME:(f + 1) * FRAME])
+                        .max())
+            check(err <= GOLDEN_TOL, f"{st.name} packet {f}: {err}")
+            worst = max(worst, err)
+            packets += 1
+    check(packets == 96, f"{packets} golden packets decoded")
+    st = streams[0]
+    typed = api.Decoder(48000, api.Channels(st.pcm.shape[1]))
+    plain = api.OpusDecoder(48000, st.pcm.shape[1])
+    for pkt in st.packets:
+        check(np.array_equal(typed.decode_float(pkt, FRAME),
+                             plain.decode(pkt, FRAME)),
+              "codec.Decoder differs from OpusDecoder")
+    enc = api.MultistreamEncoder.surround(48000, 6)
+    enc.set_bitrate(256000)
+    msdec = api.MultistreamDecoder(48000, 6, enc.streams, enc.coupled,
+                                   enc.mapping)
+    t = np.arange(FRAME * 3) / 48000.0
+    sig = np.stack([(0.4 / (1 + c)) * np.sin(2 * np.pi * (200 + 130 * c) * t)
+                    for c in range(6)], 1)
+    sig += 0.01 * np.random.default_rng(6).standard_normal(sig.shape)
+    for f in range(3):
+        out = msdec.decode(enc.encode(sig[f * FRAME:(f + 1) * FRAME], FRAME),
+                           FRAME)
+        check(out.shape == (FRAME, 6) and bool(np.isfinite(out).all()),
+              f"5.1 round trip frame {f}: {out.shape}")
+    surround_peak = float(np.abs(out).max())
+    check(surround_peak > 1e-3, "5.1 round trip is silent")
+    writer = api.OggOpusWriter(st.pcm.shape[1], preskip=312)
+    for pkt in st.packets:
+        writer.write_packet(pkt, FRAME)
+    blob = writer.finish()
+    read = [p for p, _ in api.OggOpusReader(blob).packets()]
+    check(read == st.packets, "Ogg round trip changed the packets")
+    ogg_file = api.OpusFile(blob)
+    ogg_pcm = ogg_file.decode_all()
+    ogg_err = float(np.abs(ogg_pcm - st.pcm[312:]).max())
+    check(ogg_file.pcm_total() == 12 * FRAME and ogg_err <= GOLDEN_TOL,
+          f"OpusFile: {ogg_file.pcm_total()} samples, {ogg_err} from golden")
+    say("single_stream", streams=len(streams), packets=packets,
+        ranges_equal=True, worst_abs_err_vs_golden=worst, bar=GOLDEN_TOL,
+        surround_peak=surround_peak, ogg_bytes=len(blob),
+        ogg_worst_abs_err_vs_golden=ogg_err,
+        seconds=round(time.perf_counter() - t0, 2))
+
+
+def _deep_decoder(device):
+    """OpusDecoder(48000, 1) with the port's seeded FARGAN (seed 2),
+    PitchDNN (seed 3) and RDOVAE decoder (seed 1) on `device`."""
+    from mousiki_tpu_torch import OpusDecoder
+    dec = OpusDecoder(48000, 1)
+    dec.set_deep_plc(
+        fargan.random_model(torch.Generator().manual_seed(2), device=device),
+        deep_plc.random_pitchdnn(torch.Generator().manual_seed(3),
+                                 device=device))
+    dec.set_dred_models(rdovae.random_dec(torch.Generator().manual_seed(1),
+                                          device=device),
+                        dred.synthetic_stats())
+    return dec
+
+
+def phase_deep_plc(dev):
+    """Deep PLC and the DRED decode of the single-stream OpusDecoder on
+    the card against the same decoder on the CPU."""
+    t0 = time.perf_counter()
+    enc = _dred_encoder(rdovae.random_enc(torch.Generator().manual_seed(0),
+                                          device="cpu"))
+    sig = _speechish(FRAME * 11, seed=21)
+    pkts = [enc.encode(sig[f * FRAME:(f + 1) * FRAME], FRAME)
+            for f in range(11)]
+    encode_s = round(time.perf_counter() - t0, 2)
+    card, host = _deep_decoder(dev), _deep_decoder("cpu")
+    check(card.deep_plc.device.type == "cuda",
+          f"deep PLC runs on {card.deep_plc.device}")
+    flips, worst, conceal_ms = [], {"good": 0.0, "dred": 0.0,
+                                    "plc": 0.0}, []
+    flipped = False
+
+    def compare(kind, got, want):
+        nonlocal flipped
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"{kind}: {got.shape} / {want.shape}")
+        if kind != "good":
+            pc = float(host.deep_plc.last_period[0])
+            pg = float(card.deep_plc.last_period[0])
+            if int(pc) != int(pg):
+                dist = abs(pc - round(pc))
+                flips.append(dict(kind=kind, card=pg, cpu=pc,
+                                  cpu_distance_from_integer=dist))
+                print(f"[deep_plc] period flip {flips[-1]}", flush=True)
+                check(dist < PERIOD_TOL,
+                      f"period flip far from an integer: {flips[-1]}")
+                flipped = True
+        err = float(np.abs(got - want).max())
+        if not flipped:
+            check(err <= NEURAL_PCM_TOL, f"{kind} PCM {err} from the CPU's")
+            worst[kind] = max(worst[kind], err)
+
+    def on_card(fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        conceal_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for pkt in pkts[:8]:
+        compare("good", card.decode(pkt, FRAME), host.decode(pkt, FRAME))
+    parsed = [d.dred_parse(pkts[10]) for d in (card, host)]
+    check(all(p is not None for p in parsed), "no DRED in packet 10")
+    feats = [np.stack(d.dred_process(p)) for d, p in zip((card, host),
+                                                         parsed)]
+    scale = max(1.0, float(np.abs(feats[1]).max()))
+    feat_err = float(np.abs(feats[0] - feats[1]).max())
+    check(feat_err <= 1e-4 * scale,
+          f"DRED features {feat_err} from the CPU's (bar 1e-4 * {scale})")
+    for k in (2, 1):            # the gap, oldest first (10 ms units)
+        compare("dred",
+                on_card(card.dred_decode, parsed[0], 2 * k, FRAME),
+                host.dred_decode(parsed[1], 2 * k, FRAME))
+    compare("good", card.decode(pkts[10], FRAME), host.decode(pkts[10], FRAME))
+    for d in (card, host):      # what is left of the DRED features goes
+        d.inject_dred_features([])
+    compare("plc", on_card(card.decode, None, FRAME),
+            host.decode(None, FRAME))
+    prof = _profile_step(lambda: card.decode(None, FRAME), "deep_plc_decode")
+    say("deep_plc", packets=len(pkts), encode_seconds=encode_s,
+        dred_latents=parsed[0].nb_latents, feature_err=feat_err,
+        feature_bar=1e-4 * scale, period_flips=len(flips),
+        worst_pcm_err_good=worst["good"], worst_pcm_err_dred=worst["dred"],
+        worst_pcm_err_plc=worst["plc"], bar=NEURAL_PCM_TOL,
+        card_ms_per_lost_frame=conceal_ms,
+        decode_none_launches=prof["launches"],
+        decode_none_profiled_wall_ms=prof["profiled_wall_ms"],
+        decode_none_device_busy_ms=prof["device_busy_ms"],
+        seconds=round(time.perf_counter() - t0, 2))
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1194,8 +1415,11 @@ def main() -> int:
     dreds = phase_rdovae_decode(dev)
     phase_dred_encode(dev)
     phase_neural_timing(dev, dreds)
-    # one row for each main path's shape: the path's launches (counted
-    # from 0 just before it ran) beside what phase 3 measured at that shape
+    n_pyhost = phase_python_host(dev, streams)
+    phase_single_stream()
+    phase_deep_plc(dev)
+    # one row for each path's shape: the path's launches (counted from 0
+    # just before it ran) beside what phase 3 measured at that shape
     kernels = {"kernels": [{
         "name": "deemphasis_pcm", "route": "cuda",
         "source": "mousiki_tpu_torch/csrc/deemphasis.cu",
@@ -1208,8 +1432,9 @@ def main() -> int:
         "bound_by": table[shape]["bound_by"],
         # no PyTorch call computes a first-order IIR
         "library_ms": None}
-        for path, shape, launches in (("celt", CELT_SHAPE, n_celt),
-                                      ("mixed", MIXED_SHAPE, n_mixed))]}
+        for path, shape, launches in (
+            ("celt", CELT_SHAPE, n_celt), ("mixed", MIXED_SHAPE, n_mixed),
+            ("celt_python_host", PYHOST_SHAPE, n_pyhost))]}
     RESULTS["kernels"] = kernels
     say("run", seconds=round(time.perf_counter() - t_start, 1))
     if OUT_DIR is not None:

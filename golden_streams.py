@@ -5,7 +5,8 @@ part of any installed package.
 
 Three stereo, 20 ms, full-band CELT streams (TOC config 31) and five mono
 streams of mixed modes (CELT, wide-band and narrow-band SILK, two hybrid),
-with 12 packets each and the PCM the validated decoder produced for them.
+with 12 packets each, and the PCM and final ranges the validated decoder
+produced for them.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ class GoldenStream(NamedTuple):
     payloads: list      # 12 frame payloads (TOC stripped)
     pcm: np.ndarray     # (12 * 960, channels) float32
     packets: list       # the 12 whole packets, TOC byte first
+    ranges: list        # the decoder's final range after each packet
 
 
 def _single_frame(name: str, packet: bytes) -> bytes:
@@ -51,8 +53,16 @@ def _load(names, path: str) -> list[GoldenStream]:
                 pos += int(n)
             out.append(GoldenStream(
                 name, [_single_frame(name, p) for p in packets],
-                np.asarray(g[f"{name}__pcm"], np.float32), packets))
+                np.asarray(g[f"{name}__pcm"], np.float32), packets,
+                [int(r) for r in g[f"{name}__ranges"]]))
     return out
+
+
+def load_all(path: str = GOLDEN_PATH) -> list[GoldenStream]:
+    """All eight streams, in the fixture's own order (its manifest)."""
+    with np.load(path) as g:
+        names = [str(n) for n in g["__manifest_names"]]
+    return _load(names, path)
 
 
 def load_stereo_celt(path: str = GOLDEN_PATH) -> list[GoldenStream]:

@@ -1,5 +1,6 @@
-"""The DRED encoder the copied `opus_encoder.py` imports as `.dred`: the
-port's own (mousiki_tpu_torch/dred.py), whose RDOVAE encoder runs in
-PyTorch."""
+"""The DRED API the copied `opus_encoder.py` and `opus_decoder.py` import
+as `.dred`: the port's own (mousiki_tpu_torch/dred.py), whose RDOVAE
+encoder and decoder run in PyTorch on the given model's device."""
 
-from ..dred import DredEncoder  # noqa: F401
+from ..dred import (DredEncoder, OpusDred, opus_dred_parse,  # noqa: F401
+                    opus_dred_process)

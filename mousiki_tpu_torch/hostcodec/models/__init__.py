@@ -1,2 +1,2 @@
-"""The neural models the copied `opus_encoder.py` imports: re-exports of
-the port's own (mousiki_tpu_torch/models/)."""
+"""The neural models the copied `opus_encoder.py` and `opus_decoder.py`
+import: re-exports of the port's own (mousiki_tpu_torch/models/)."""

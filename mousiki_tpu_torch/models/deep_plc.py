@@ -75,6 +75,7 @@ class DeepPlcState:
         self.last_features = np.zeros(20)
         self.fec_queue = []       # DRED-injected feature vectors
         self.loss_count = 0
+        self.last_period = None   # (1,) float period of the last conceal
 
     def update(self, pcm16k: np.ndarray) -> None:
         """Track features over the decoded (good) audio, 10 ms at a time."""
@@ -99,9 +100,9 @@ class DeepPlcState:
                  else self.last_features)
         f = torch.as_tensor(np.asarray(feats, np.float32)[None, :],
                             device=self.device)
-        period, self.pitch_state = compute_pitchdnn(
+        self.last_period, self.pitch_state = compute_pitchdnn(
             self.pitch_model, self.pitch_state, f)
-        period = period.to(torch.int32)
+        period = self.last_period.to(torch.int32)
         while sum(len(o) for o in out) < n_samples:
             pcm, self.fargan_state = synthesize_frame(
                 self.fargan_model, self.fargan_state, f, period)

@@ -24,8 +24,11 @@ the pipelines of mousiki_tpu/pipeline.py, for one device.
 The host halves are the port's own copies of the native C++ codecs
 (`celt/host_native.py`, `silk/host_native.py`, `opus_host_native.py`,
 built with g++ from `csrc/` at first use) and, for the SILK encoder, of
-the numpy host codec (`hostcodec/`); there is no pure-Python fallback for
-a native stage and no multi-device mesh here.
+the numpy host codec (`hostcodec/`). `CeltStreamPipeline(use_native=False)`
+puts the copied Python CELT decoder (`hostcodec/celt/decoder.py`) in
+front of the device synthesis instead; otherwise a native stage that does
+not build raises: there is no fallback to Python, and no multi-device mesh
+here.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from . import _device
 from .bitstream.packet import parse_packet
 from .celt import host_native
 from .celt.modes import MODE
+from .hostcodec.celt.decoder import CeltDecoder
 from .ops.band_exec import (plan_combo_mats, plan_synthesis_scan,
                             plan_synthesis_step_plc)
 from .ops.encode_front import (front_scan, front_step, init_front_state,
@@ -125,12 +129,18 @@ class _HostStaging:
 class CeltStreamPipeline:
     """Decode S parallel CELT streams, one 48 kHz frame per step.
 
+    The arguments are the reference's, in its order, with `device`
+    added as a keyword.
+
     use_plan=True (the serving path): the native host decodes only
     symbols, emitting packed band plans; band reconstruction, concealment
     of lost packets (a payload of None) and synthesis run on `device`.
-    use_plan=False: the native host reconstructs the bands too and the
-    device runs the synthesis alone; that path conceals no loss.
+    use_plan=False (the default): the host reconstructs the bands too and
+    the device runs the synthesis alone; that path conceals no loss.
 
+    use_native: None or True take the native host library (a failed
+    build raises); False takes one copied Python CeltDecoder a stream,
+    non-plan only (plan mode with use_native=False raises ValueError).
     host_threads: worker threads of the native batch call (0 = one per
     hardware thread). Set `overlap_host = True` to have `decode_stream`
     decode frame k+1 on a worker thread while frame k is copied and
@@ -138,22 +148,29 @@ class CeltStreamPipeline:
     """
 
     def __init__(self, n_streams: int, channels: int = 2,
-                 use_plan: bool = True, *, device, host_threads: int = 0,
-                 use_native: bool | None = None, mesh=None):
+                 use_native: bool | None = None, mesh=None,
+                 host_threads: int = 0, use_plan: bool = False, *, device):
+        if use_plan and use_native is False:
+            raise ValueError("plan mode requires the native host")
         _no_mesh(mesh)
-        if use_native is False:
-            raise NotImplementedError(
-                "the pure-Python CeltDecoder host is not ported; the port "
-                "decodes symbols with its native library only")
         self.S = n_streams
         self.channels = channels
         self.use_plan = use_plan
         self.overlap_host = False
         self.device = _device.as_device(device)
         self._h2d = _HostStaging(self.device)
-        self._native = host_native.NativeCeltHostBatch(
-            n_streams, channels=channels, disable_inv=channels == 1,
-            n_threads=host_threads, arena_alloc=self._h2d.alloc)
+        self._native = None
+        self._py_hosts = None
+        if use_native is False:
+            self._py_hosts = [CeltDecoder(channels=channels,
+                                          stream_channels=channels)
+                              for _ in range(n_streams)]
+            for h in self._py_hosts:
+                h.disable_inv = channels == 1
+        else:
+            self._native = host_native.NativeCeltHostBatch(
+                n_streams, channels=channels, disable_inv=channels == 1,
+                n_threads=host_threads, arena_alloc=self._h2d.alloc)
         self.state = init_state(n_streams, channels, self.device)
         self.plc_state = init_plc_state(n_streams, channels, self.device)
         # per-frame-size constants (LM 0-3) and the all-zero x_direct,
@@ -189,7 +206,9 @@ class CeltStreamPipeline:
     # ------------------------------------------------------------------
     def _host_decode(self, payloads: list, frame_size: int) -> FrameDesc:
         """Non-plan host stage: dense band shapes and descriptors, on the
-        device. The native batch allocates fresh outputs every call."""
+        device. Both hosts allocate fresh outputs every call."""
+        if self._py_hosts is not None:
+            return self._host_decode_python(payloads, frame_size)
         with record_function("host.celt_decode"):
             x, ble2, iflags, pf_gains, rcs = self._native.decode(
                 payloads, frame_size)
@@ -197,16 +216,49 @@ class CeltStreamPipeline:
             bad = int(np.argmax(rcs < 0))
             raise ValueError(
                 f"stream {bad}: native celt decode failed rc={rcs[bad]}")
+        return self._desc_to_device(
+            x, ble2[:, :self.channels, :], iflags[:, 0] != 0,
+            iflags[:, 1] != 0, iflags[:, 2], pf_gains, iflags[:, 3])
+
+    def _host_decode_python(self, payloads: list, frame_size: int):
+        """The copied Python decoder, one a stream (ref pipeline.py's
+        _py_hosts branch)."""
+        if any(p is None for p in payloads):
+            raise ValueError("the non-plan decode has no loss concealment; "
+                             "use plan mode for lost packets")
+        S, C = self.S, self.channels
+        x = np.zeros((S, C, frame_size), np.float32)
+        ble = np.zeros((S, C, 21))
+        transient = np.zeros(S, bool)
+        silence = np.zeros(S, bool)
+        pf_pitch = np.zeros(S, np.int32)
+        pf_tapset = np.zeros(S, np.int32)
+        pf_gains = np.zeros(S)
+        with record_function("host.celt_decode"):
+            for s, payload in enumerate(payloads):
+                d = self._py_hosts[s].decode_with_ec(payload, frame_size,
+                                                     return_desc=True)
+                x[s] = d["x"]
+                ble[s] = d["band_log_e"][:C]
+                transient[s] = d["transient"]
+                silence[s] = d["silence"]
+                pf_pitch[s] = d["pf_pitch"]
+                pf_tapset[s] = d["pf_tapset"]
+                pf_gains[s] = d["pf_gain"]
+        return self._desc_to_device(x, ble, transient, silence, pf_pitch,
+                                    pf_gains, pf_tapset)
+
+    def _desc_to_device(self, x, ble, transient, silence, pf_pitch,
+                        pf_gains, pf_tapset) -> FrameDesc:
         ble_pad = np.full((self.S, self.channels, 22), _LOW_E, np.float32)
-        ble_pad[:, :, :21] = ble2[:, :self.channels, :]
+        ble_pad[:, :, :21] = ble
         to_dev = self._h2d.to_device
         return FrameDesc(
             x=to_dev(x), band_log_e=to_dev(ble_pad),
-            transient=to_dev(iflags[:, 0] != 0),
-            silence=to_dev(iflags[:, 1] != 0),
-            pf_pitch=to_dev(np.ascontiguousarray(iflags[:, 2])),
-            pf_gain=to_dev(pf_gains.astype(np.float32)),
-            pf_tapset=to_dev(np.ascontiguousarray(iflags[:, 3])))
+            transient=to_dev(transient), silence=to_dev(silence),
+            pf_pitch=to_dev(np.ascontiguousarray(pf_pitch, np.int32)),
+            pf_gain=to_dev(np.asarray(pf_gains, np.float32)),
+            pf_tapset=to_dev(np.ascontiguousarray(pf_tapset, np.int32)))
 
     def _decode_plan_host(self, payloads: list, frame_size: int):
         """The pure-CPU part of the plan host stage (safe on a worker

@@ -2,7 +2,8 @@
 committed golden PCM, against the JAX plan pipeline under packet loss,
 continuing a JAX pipeline's decode mid-stream, and its other modes (host
 overlap, chunks, the scanned decode, the non-plan path) against its own
-stepped plan output.
+stepped plan output, the Python host (use_native=False) against the JAX
+package's, and the constructor's arguments against the reference's.
 
 Bars: 1e-5 to the golden PCM (the JAX pipeline reaches 5.1e-7 there);
 against the JAX pipeline 5e-3 on lost and just-recovered frames and 2e-4
@@ -65,9 +66,9 @@ def test_pipeline_matches_golden_pcm(serving):
 
 def test_decode_stream_matches_step(serving):
     S, F = 3, 4
-    stepped = CeltStreamPipeline(S, device="cpu")
+    stepped = CeltStreamPipeline(S, use_plan=True, device="cpu")
     want = [stepped.step(frame_batch(serving, S, f)) for f in range(F)]
-    streamed = CeltStreamPipeline(S, device="cpu")
+    streamed = CeltStreamPipeline(S, use_plan=True, device="cpu")
     got = list(streamed.decode_stream(frame_batch(serving, S, f)
                                       for f in range(F)))
     assert len(got) == F
@@ -78,7 +79,7 @@ def test_decode_stream_matches_step(serving):
 def test_pipeline_with_loss_matches_jax(serving):
     S, F = 4, 8
     lost = _loss_pattern(S, F, seed=5)
-    port = CeltStreamPipeline(S, device="cpu")
+    port = CeltStreamPipeline(S, use_plan=True, device="cpu")
     ref = JaxPipeline(S, channels=2, use_plan=True)
     for f in range(F):
         batch = frame_batch(serving, S, f, lost[:, f])
@@ -98,7 +99,7 @@ def test_handover_from_jax_mid_stream(serving):
     lost = _loss_pattern(S, F, seed=9)
     lost[2, K - 1] = True                   # a loss in flight at handover
     ref = JaxPipeline(S, channels=2, use_plan=True)
-    port = CeltStreamPipeline(S, device="cpu")
+    port = CeltStreamPipeline(S, use_plan=True, device="cpu")
     for f in range(K):
         batch = frame_batch(serving, S, f, lost[:, f])
         ref.step(batch, 960)
@@ -136,7 +137,7 @@ def test_short_frames_match_jax():
         for f in range(F)]
     lost = np.zeros((S, F), bool)
     lost[1, 3] = True
-    port = CeltStreamPipeline(S, device="cpu")
+    port = CeltStreamPipeline(S, use_plan=True, device="cpu")
     ref = JaxPipeline(S, channels=2, use_plan=True)
     for f in range(F):
         batch = [None if lost[s, f] else pays[f] for s in range(S)]
@@ -149,7 +150,7 @@ def test_short_frames_match_jax():
 
 
 def _stepped(streams, S, F, lost):
-    pipe = CeltStreamPipeline(S, device="cpu")
+    pipe = CeltStreamPipeline(S, use_plan=True, device="cpu")
     return [pipe.step(frame_batch(streams, S, f, lost[:, f]))
             for f in range(F)]
 
@@ -164,7 +165,7 @@ def test_stream_modes_equal_stepped_output(serving, mode):
     lost = _loss_pattern(S, F, seed=3)
     want = _stepped(serving, S, F, lost)
     frames = [frame_batch(serving, S, f, lost[:, f]) for f in range(F)]
-    pipe = CeltStreamPipeline(S, device="cpu", host_threads=2)
+    pipe = CeltStreamPipeline(S, use_plan=True, device="cpu", host_threads=2)
     if mode == "scanned":
         got = pipe.decode_frames_scanned(frames)
         assert got.shape == (F, S, 960, 2)
@@ -181,14 +182,14 @@ def test_stream_modes_equal_stepped_output(serving, mode):
         assert torch.equal(got[f], want[f]), (mode, f)
     # the streams go on from the same state as the stepped pipeline's
     more = frame_batch(serving, S, 10)
-    stepped = CeltStreamPipeline(S, device="cpu")
+    stepped = CeltStreamPipeline(S, use_plan=True, device="cpu")
     for f in range(F):
         stepped.step(frame_batch(serving, S, f, lost[:, f]))
     assert torch.equal(pipe.step(more), stepped.step(more))
 
 
 def test_empty_streams_and_chunk_arguments(serving):
-    pipe = CeltStreamPipeline(3, device="cpu")
+    pipe = CeltStreamPipeline(3, use_plan=True, device="cpu")
     assert list(pipe.decode_stream(iter([]))) == []
     assert list(pipe.decode_stream(iter([]), chunk=4)) == []
     with pytest.raises(ValueError, match=">= 1 frame"):
@@ -199,10 +200,51 @@ def test_empty_streams_and_chunk_arguments(serving):
                                    chunk=2))
     with pytest.raises(ValueError, match="no loss concealment"):
         nonplan.step([None] + frame_batch(serving, 3, 0)[1:])
-    with pytest.raises(NotImplementedError, match="CeltDecoder"):
-        CeltStreamPipeline(3, use_native=False, device="cpu")
+    python = CeltStreamPipeline(3, use_native=False, device="cpu")
+    with pytest.raises(ValueError, match="no loss concealment"):
+        python.step([None] + frame_batch(serving, 3, 0)[1:])
     with pytest.raises(NotImplementedError, match="mesh"):
         CeltStreamPipeline(3, mesh=object(), device="cpu")
+
+
+def test_constructor_takes_the_reference_arguments(serving):
+    """The reference's order and defaults: (n_streams, channels,
+    use_native, mesh, host_threads, use_plan), the default non-plan, and
+    plan mode refused with the Python host; device is keyword-only."""
+    positional = CeltStreamPipeline(3, 2, True, None, 1, device="cpu")
+    assert not positional.use_plan and positional._native is not None
+    assert positional._native.n_threads == 1
+    default = CeltStreamPipeline(3, device="cpu")
+    assert not default.use_plan and default._py_hosts is None
+    assert CeltStreamPipeline(3, 2, None, None, 0, True,
+                              device="cpu").use_plan
+    with pytest.raises(ValueError, match="plan mode requires the native"):
+        CeltStreamPipeline(3, use_native=False, use_plan=True, device="cpu")
+    with pytest.raises(TypeError):
+        CeltStreamPipeline(3, 2, None, None, 0, False, "cpu")
+    for ref in (JaxPipeline(3, 2, True), JaxPipeline(3)):
+        assert not ref.use_plan and ref._native is not None
+
+
+def test_python_host_matches_jax_and_native(serving):
+    """use_native=False: one copied Python CeltDecoder a stream in front of
+    the device synthesis, against the JAX use_native=False pipeline (1e-5)
+    and the port's native non-plan path (2e-4), over 4 golden frames."""
+    S, F = 2, 4
+    python = CeltStreamPipeline(S, 2, use_native=False, device="cpu")
+    assert python._native is None and len(python._py_hosts) == S
+    native = CeltStreamPipeline(S, 2, device="cpu")
+    ref = JaxPipeline(S, 2, use_native=False)
+    assert ref._py_hosts is not None
+    for f in range(F):
+        batch = frame_batch(serving, S, f)
+        got = python.step(batch)
+        assert got.shape == (S, 960, 2)
+        want = np.asarray(ref.step(batch))
+        assert np.abs(got.numpy() - want).max() <= 1e-5, f
+        assert (got - native.step(batch)).abs().max() <= 2e-4, f
+        assert np.abs(got.numpy() - golden_pcm(serving, S, f)).max() \
+            <= 2e-4, f
 
 
 def _encoded_frames(frame, F):
@@ -230,7 +272,7 @@ def test_non_plan_path_matches_plan_and_jax(serving, frame):
         batches = [frame_batch(serving, S, f) for f in range(F)]
     else:
         batches = [[p] * S for p in _encoded_frames(frame, F)]
-    plan = CeltStreamPipeline(S, device="cpu")
+    plan = CeltStreamPipeline(S, use_plan=True, device="cpu")
     nonplan = CeltStreamPipeline(S, use_plan=False, device="cpu")
     streamed = CeltStreamPipeline(S, use_plan=False, device="cpu")
     ref = None

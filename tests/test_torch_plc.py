@@ -48,7 +48,8 @@ def _profile(profile):
 def history():
     streams = load_stereo_celt()
     with _profile(SERVING_PROFILE):
-        pipe = CeltStreamPipeline(S, channels=C, device="cpu")
+        pipe = CeltStreamPipeline(S, channels=C, use_plan=True,
+                                  device="cpu")
         for f in range(5):
             pipe.step(frame_batch(streams, S, f))
     return pipe.state

@@ -180,12 +180,20 @@ _HOSTCODEC_OWN = {
                    "package's top-level __init__)",
     "silk/host_native.py": "finds the native SILK library through the "
                            "port's ops/_build.load_host, not native/",
-    "dred.py": "re-exports the port's DredEncoder (mousiki_tpu_torch/dred.py)",
-    "models/__init__.py": "the subpackage of the shim below",
+    "dred.py": "re-exports the port's DredEncoder, OpusDred, "
+               "opus_dred_parse and opus_dred_process "
+               "(mousiki_tpu_torch/dred.py)",
+    "models/__init__.py": "the subpackage of the shims below",
+    "models/deep_plc.py": "builds the port's DeepPlcState on its model's "
+                          "device (else the GPU), where the copied "
+                          "opus_decoder.py names no device",
     "models/dred.py": "re-exports DRED_EXTENSION_ID of the port's "
                       "models/dred.py",
     "ops/input_resampler.py": "re-exports the port's ArbitraryResampler "
                               "(mousiki_tpu_torch/ops/input_resampler.py)",
+    "utils/__init__.py": "makes utils/ a package (the original is a "
+                         "namespace directory), so that the import guard "
+                         "walks into debug.py",
 }
 
 
@@ -200,6 +208,12 @@ _HOSTCODEC_LINE_EDITS = {
     "celt/modes.py": [
         (rb"libopus's custom-mode \w+ does\)",
          b"libopus's custom-mode constructor does)")],
+    # the same word, twice, in the docstrings of the typed API
+    "codec.py": [
+        (rb"Encoder/Decoder \+\n\w+s with Application",
+         b"Encoder/Decoder +\nsetters with Application"),
+        (rb"facade over OpusEncoder \(\w+-style setters\)",
+         b"facade over OpusEncoder (chainable setters)")],
 }
 
 
@@ -215,7 +229,7 @@ def _hostcodec_files():
 @pytest.mark.parametrize("rel", _hostcodec_files())
 def test_hostcodec_file_equals_original(rel):
     """Every file of the copied host codec equals its original byte for
-    byte, apart from two reworded docstring lines (listed); the port's
+    byte, apart from four reworded docstring lines (listed); the port's
     own files there are listed by name."""
     with open(os.path.join(_ROOT, "mousiki_tpu_torch", "hostcodec", rel),
               "rb") as fh:
@@ -234,15 +248,23 @@ def test_hostcodec_file_equals_original(rel):
 def test_hostcodec_is_the_encoder_closure():
     """The closure of OpusEncoder: its SILK encoder (38 files), the
     modules its other branches import (input resampler, repacketizer,
-    extensions, tonality analysis, DRED), and nothing else."""
+    extensions, tonality analysis, DRED); then the single-stream API on
+    top of it (16 files: OpusDecoder with softclip and the deep-PLC shim,
+    codec, ctl, utils/debug, multistream, projection, the Ogg containers,
+    lightweight, celt/custom), and nothing else."""
     files = _hostcodec_files()
-    assert len(files) == 46 and set(_HOSTCODEC_OWN) <= set(files)
+    assert len(files) == 62 and set(_HOSTCODEC_OWN) <= set(files)
     for rel in ("opus_encoder.py", "silk/encoder.py", "silk/nsq_del_dec.py",
                 "silk/noise_shape.py", "celt/encoder.py",
                 "bitstream/entcode.py", "bitstream/extensions.py",
                 "bitstream/repacketizer.py", "analysis.py",
                 "analysis_tables.py", "dred.py", "models/dred.py",
-                "ops/input_resampler.py"):
+                "ops/input_resampler.py", "opus_decoder.py", "softclip.py",
+                "models/deep_plc.py", "codec.py", "ctl.py", "utils/debug.py",
+                "multistream.py", "projection.py", "projection_tables.py",
+                "containers/__init__.py", "containers/ogg.py",
+                "containers/picture.py", "containers/opusfile.py",
+                "lightweight.py", "celt/custom.py"):
         assert rel in files
 
 
@@ -433,8 +455,25 @@ for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.hostcodec.ops.input_resampler",
              "mousiki_tpu_torch.hostcodec.analysis",
              "mousiki_tpu_torch.hostcodec.bitstream.extensions",
-             "mousiki_tpu_torch.hostcodec.bitstream.repacketizer"):
+             "mousiki_tpu_torch.hostcodec.bitstream.repacketizer",
+             "mousiki_tpu_torch.hostcodec.softclip",
+             "mousiki_tpu_torch.hostcodec.opus_decoder",
+             "mousiki_tpu_torch.hostcodec.models.deep_plc",
+             "mousiki_tpu_torch.hostcodec.codec",
+             "mousiki_tpu_torch.hostcodec.ctl",
+             "mousiki_tpu_torch.hostcodec.utils.debug",
+             "mousiki_tpu_torch.hostcodec.multistream",
+             "mousiki_tpu_torch.hostcodec.projection",
+             "mousiki_tpu_torch.hostcodec.projection_tables",
+             "mousiki_tpu_torch.hostcodec.containers.ogg",
+             "mousiki_tpu_torch.hostcodec.containers.picture",
+             "mousiki_tpu_torch.hostcodec.containers.opusfile",
+             "mousiki_tpu_torch.hostcodec.lightweight",
+             "mousiki_tpu_torch.hostcodec.celt.custom"):
     assert name in sys.modules, name
+# every top-level name of the reference resolves without it
+for name in mousiki_tpu_torch.__all__:
+    getattr(mousiki_tpu_torch, name)
 assert not any(m.split(".")[0] in _BLOCKED for m in sys.modules)
 print("imported", len(names))
 """
@@ -493,9 +532,12 @@ def test_deemphasis_kernel_matches_plain_on_gpu():
 def test_device_is_required():
     """No default device: leaving it out raises instead of running on
     the CPU. The entry points that host code builds without a device
-    (DredEncoder, opus_dred_process) take their model's, and without a
+    (DredEncoder, opus_dred_process, and the DeepPlcState that the copied
+    OpusDecoder's set_deep_plc builds) take their model's, and without a
     model the GPU, which raises where there is none."""
     from mousiki_tpu_torch import dred
+    from mousiki_tpu_torch.hostcodec.models import deep_plc as plc_shim
+    from mousiki_tpu_torch.hostcodec.opus_decoder import OpusDecoder
     from mousiki_tpu_torch.models import deep_plc, fargan, nnet
     from mousiki_tpu_torch.parallel.deep_recovery import BatchedDeepRecovery
     from mousiki_tpu_torch.pipeline import CeltStreamPipeline
@@ -523,6 +565,20 @@ def test_device_is_required():
         parsed = dred.OpusDred(dred.dred_parse(payload, stats), payload)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dred.opus_dred_process(parsed)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            plc_shim.DeepPlcState()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            OpusDecoder(48000, 1).set_deep_plc(None)
     cpu_model = dred.M.random_enc(torch.Generator().manual_seed(0),
                                   device="cpu")
     assert dred.DredEncoder(48000, 1, model=cpu_model).device.type == "cpu"
+    gen = torch.Generator().manual_seed(2)
+    cpu_fargan = fargan.random_model(gen, device="cpu")
+    cpu_pitch = deep_plc.random_pitchdnn(gen, device="cpu")
+    for models in ((cpu_fargan, None), (None, cpu_pitch),
+                   (cpu_fargan, cpu_pitch)):
+        dec = OpusDecoder(48000, 1)
+        dec.set_deep_plc(*models)
+        assert isinstance(dec.deep_plc, deep_plc.DeepPlcState)
+        assert dec.deep_plc.device.type == "cpu"
+        assert dec.deep_plc.pitch_state.device.type == "cpu"
