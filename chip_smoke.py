@@ -20,7 +20,8 @@ thing if any module of mousiki_tpu is loaded):
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
      Python-host CELT path's (phase 19), and (256, 2, 120), (7, 1, 960),
-     (3, 2, 240); bar 1e-4 * max|pcm|. For
+     (3, 2, 240), and a shard's shapes on the mesh of phase 23 ((128, 2,
+     960) and (128, 1, 960) on one card); bar 1e-4 * max|pcm|. For
      each: the kernel's device time (torch.profiler; input in L2 as on the
      main path, and L2 evicted by a 128 MB read before each launch), its
      HBM bound and bound share, the plain
@@ -35,10 +36,10 @@ thing if any module of mousiki_tpu is loaded):
   5. loss: 256 streams with ~10% seeded packet loss, the first 8 streams
      against the port run on the CPU (5e-3 on lost and just-recovered
      frames, 2e-4 elsewhere);
-  6. the CELT decoder's other modes at S = 256: decode_frames_scanned,
-     decode_stream(chunk=4) and decode_stream with overlap_host each equal
-     to the stepped output exactly, and the non-plan path within 2e-4 of
-     the golden PCM;
+  6. the CELT decoder's other modes at S = 256, 8 frames:
+     decode_frames_scanned, decode_stream(chunk=4) and decode_stream with
+     overlap_host each equal to the stepped output exactly, and the
+     non-plan path within 2e-4 of the golden PCM;
   7. mixed main path: OpusStreamPipeline(256, channels=1); stream s plays
      golden mono stream s % 5 (CELT, SILK 16 kHz, SILK 8 kHz, two hybrid),
      whole packets, 12 frames; every stream within 2e-4 of the golden PCM
@@ -76,8 +77,9 @@ thing if any module of mousiki_tpu is loaded):
  14. timing: steady-state ms/step and aggregate realtime-x through
      decode_stream: the CELT decoder at S = 256 (default, overlap_host,
      chunk=4) and S = 1024, the mixed decoder at S = 256 and S = 1024,
-     each timed three times (twice at S = 1024), the modes of one width
-     taking turns (every run, the least and the median are reported); the
+     8 steps after warm-up, each timed three times (once at S = 1024), the
+     modes of one width taking turns (every run, the least and the median
+     are reported); the
      CELT encoder at
      S = 256 through step() and through encode_stream() with chunks of 8
      (24 frames after 8 of warm-up, three runs in turn); and profiled
@@ -137,12 +139,30 @@ thing if any module of mousiki_tpu is loaded):
      each; every lane ok, PCM within 2e-4 of the golden PCM, the kernel
      launched once a step (counts reset just before); ms a step, the host
      time of each stage of the first step, and one profiled step
-     (device-only trace: kernels, device busy time) of each width.
+     (device-only trace: kernels, device busy time) of each width;
+ 23. the stream mesh (parallel/streaming.py): every card when there are
+     two or more, else two shards on the one card
+     (shards_on_one_card=true). CeltStreamPipeline(256, 2, mesh=...,
+     use_plan=True) on the stereo fixtures (12 frames) and
+     OpusStreamPipeline(256, mesh=...) on the mono mix (6 frames), ~10%
+     seeded loss from frame 2, each against a single-device pipeline fed
+     the same frames: 1e-5 on the streams that have lost nothing yet,
+     5e-4 on the others, the streams that lost nothing within 2e-4 of the
+     golden PCM, and one kernel launch a shard a step (counts reset just
+     before the mesh run); ms/step of the mesh and of the single-device
+     pipeline at S = 256, loss-free, taking turns, three runs of 4 steps;
+     one profiled mesh step (launches, the gather's launches and host
+     time);
+ 24. libopus: whether the host has it (hostcodec/testing/oracle.py) and
+     its version; where it has, the plan pipeline on the three stereo
+     fixtures within 2e-4 of libopus's float decode; where it has not,
+     the line libopus=unavailable (a fact about the host, not a failure).
 
 Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
 each path's shape, every number of a row measured at that shape); the last
-line is {"ok": true, "device": {...}}. With --out DIR, everything
+line is {"ok": true, "device": {...}}. The "run" line holds the wall
+seconds of every phase. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
 the profiled steps to DIR/profile_*.txt.
 """
@@ -175,8 +195,10 @@ from mousiki_tpu_torch.models import deep_plc, fargan
 from mousiki_tpu_torch.models import dred as rdovae
 from mousiki_tpu_torch.ops import celt_lockstep_top as lockstep
 from mousiki_tpu_torch.ops import encode_front, silk_nsq, synthesis
+from mousiki_tpu_torch.hostcodec.testing import oracle
 from mousiki_tpu_torch.ops.band_exec import plan_combo_mats
 from mousiki_tpu_torch.parallel.deep_recovery import BatchedDeepRecovery
+from mousiki_tpu_torch.parallel.streaming import StreamMesh, make_mesh
 from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltEncodePipeline,
                                         CeltStreamPipeline,
                                         OpusStreamPipeline,
@@ -199,10 +221,18 @@ PYHOST_SHAPE = (S_PYHOST, 2, FRAME)
 KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, PYHOST_SHAPE, (256, 2, 120),
                  (7, 1, 960), (3, 2, 240))
 TIMING_REPEATS = 3
+TIMING_STEPS = 8                # timed steps a run of phase 14
 ENCODE_BITRATE = 128000
 # the card's CELT encode -> decode round trip may fall this far (dB) under
 # the same round trip through the port on the CPU, made in the same run
 ENCODE_SNR_MARGIN_DB = 3.0
+# the stream mesh against the single-device pipeline: on the streams that
+# have lost nothing yet, and on the others (the products round
+# differently at S / n and S streams, and the concealment and the state
+# it leaves grow that: up to 3.5e-5 on the CPU port)
+MESH_TOL, MESH_TOUCHED_TOL = 1e-5, 5e-4
+MESH_TIMING_STEPS = 4
+F_MIXED_MESH = 6                # frames of the mixed mesh check
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -281,12 +311,13 @@ def _device_ms(fn, reps: int = 20, match: str | None = None,
     `match` leaves its kernels out. The profiler now and then drops a
     kernel event, so the time is the mean kernel duration times the
     kernels a call runs; a window in which it saw under half of them is
-    measured again, up to three windows."""
+    measured again, up to six windows (one run saw none in three windows
+    in a row)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    for window in range(3):
+    for window in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -318,13 +349,13 @@ def bound_ms(S: int, C: int, N: int) -> tuple[float, str, int]:
                                  else "operations"), nbytes
 
 
-def phase_kernel(dev):
+def phase_kernel(dev, shapes):
     rng = np.random.default_rng(7)
     # 128 MB read between launches evicts the 50 MB L2 with clean lines
     # (a write would leave dirty lines for the kernel to write back)
     flush = torch.zeros(32 << 20, dtype=torch.float32, device=dev)
     table = {}
-    for S, C, N in KERNEL_SHAPES:
+    for S, C, N in shapes:
         x = torch.as_tensor((rng.standard_normal((S, C, N)) * 1000)
                             .astype(np.float32), device=dev)
         mem = torch.as_tensor((rng.standard_normal((S, C)) * 100)
@@ -443,7 +474,7 @@ def phase_celt_modes(dev, streams):
     """The scanned decode, the chunked stream and the threaded host overlap
     against the stepped output at S = 256 (equal exactly), and the
     non-plan path against the golden PCM."""
-    S, F = S_MAIN, 12
+    S, F = S_MAIN, 8
     lost = np.zeros((S, F), bool)
     lost[::9, 7] = True                      # concealment inside a chunk
     frames = [frame_batch(streams, S, f, lost[:, f]) for f in range(F)]
@@ -560,8 +591,8 @@ def _time_stream(pipe, batch_fn, warm=3, steps=12, **kwargs):
 
 
 # record_function spans of the port
-RANGES = ("host.", "plan.", "plc.", "synthesis.", "silk.", "mixed.",
-          "front.", "nsq.", "pitchdnn", "fargan.", "rdovae.")
+RANGES = ("host.", "mesh.", "plan.", "plc.", "synthesis.", "silk.",
+          "mixed.", "front.", "nsq.", "pitchdnn", "fargan.", "rdovae.")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
 
@@ -613,8 +644,8 @@ def _profile_step(step, tag=None):
 
 
 def _profile(name, step_of_frame):
-    """Two profiled steps: the first warms the profiler up."""
-    _profile_step(partial(step_of_frame, 4))
+    """One profiled step (of frame 5). The profiler is warm from phase 3
+    on, and the pipeline has run steps before."""
     say(f"profile_{name}", **_profile_step(partial(step_of_frame, 5), name))
 
 
@@ -636,12 +667,13 @@ def phase_timing(dev, streams, mono):
         # the modes take turns, so that a slow stretch of the shared host
         # does not fall on one of them alone
         runs: dict = {name: [] for name in modes}
-        # the wide runs are timed twice: with three the whole run took over
-        # ten minutes on a slow host
-        for rep in range(TIMING_REPEATS if S == S_MAIN else 2):
+        # the wide runs are timed once: with more the whole script took
+        # over 900 s of its 1200 on a slow host
+        for rep in range(TIMING_REPEATS if S == S_MAIN else 1):
             for name, (p, batch_fn, kwargs) in modes.items():
                 runs[name].append(_time_stream(
-                    p, batch_fn, warm=1 if rep else 3, **kwargs))
+                    p, batch_fn, warm=1 if rep else 3, steps=TIMING_STEPS,
+                    **kwargs))
         for name, ms in runs.items():
             median = float(np.median(ms))
             say(f"timing_{name}", streams=S, ms_per_step=median,
@@ -1527,6 +1559,147 @@ def phase_lockstep(dev, streams, mono):
     return launches
 
 
+def mesh_layout(dev):
+    """The stream mesh: every card when there are two or more, else two
+    shards on the one card. Returns (mesh, streams, shards_on_one_card),
+    the streams S_MAIN rounded up to a multiple of the mesh size."""
+    if torch.cuda.device_count() >= 2:
+        mesh, one_card = make_mesh(), False
+    else:
+        mesh, one_card = StreamMesh([dev, dev]), True
+    return mesh, -(-S_MAIN // mesh.size) * mesh.size, one_card
+
+
+def _mesh_against_single(name, dev, mesh, make_pipe, batch_fn, S, F, lost):
+    """F frames through a single-device pipeline and then through the mesh
+    (launch counts reset just before the mesh run); returns the mesh's PCM
+    on the host, its kernel launches and the worst differences on the
+    streams that have lost nothing yet and on the others."""
+    single = make_pipe(None)
+    want = [single.step(batch_fn(f, lost[:, f])).cpu().numpy()
+            for f in range(F)]
+    del single
+    pipe = make_pipe(mesh)
+    deemph.reset_launches()
+    got = []
+    for f in range(F):
+        pcm = pipe.step(batch_fn(f, lost[:, f]))
+        check(pcm.device == dev, f"{name}: pcm on {pcm.device}, not {dev}")
+        got.append(pcm.cpu().numpy())
+    torch.cuda.synchronize()
+    launches = deemph.deemphasis_launches
+    worst_clean = worst_touched = 0.0
+    for f in range(F):
+        check(got[f].shape == want[f].shape, f"{name} pcm {got[f].shape}")
+        check(bool(np.isfinite(got[f]).all()), f"{name}: non-finite pcm")
+        err = np.abs(got[f] - want[f]).max(axis=(1, 2))
+        touched = lost[:, :f + 1].any(axis=1)
+        worst_clean = max(worst_clean, float(err[~touched].max()))
+        if touched.any():
+            worst_touched = max(worst_touched, float(err[touched].max()))
+    check(worst_clean <= MESH_TOL,
+          f"{name}: loss-free streams {worst_clean} from the single device")
+    check(worst_touched <= MESH_TOUCHED_TOL,
+          f"{name}: streams after a loss {worst_touched} from the single "
+          "device")
+    check(launches == F * mesh.size,
+          f"{name}: {launches} deemphasis launches, {F * mesh.size} "
+          "expected (one a shard a step)")
+    return got, launches, worst_clean, worst_touched
+
+
+def phase_mesh(dev, streams, mono, mesh, S, one_card):
+    """The stream mesh (parallel/streaming.py): the stereo CELT plan path
+    and the mixed mono path split over the mesh, against single-device
+    pipelines fed the same frames; then ms/step of both in turns and one
+    profiled mesh step."""
+    F = 12
+    say("mesh", device_count=torch.cuda.device_count(), shards=mesh.size,
+        devices=[str(d) for d in mesh.devices], streams=S,
+        shards_on_one_card=str(one_card).lower())
+    rng = np.random.default_rng(23)
+    lost = rng.random((S, F)) < 0.10
+    lost[:, :2] = False
+    got, n_celt, clean_err, touched_err = _mesh_against_single(
+        "mesh_celt", dev, mesh,
+        lambda m: CeltStreamPipeline(S, 2, mesh=m, use_plan=True,
+                                     device=dev),
+        partial(frame_batch, streams, S), S, F, lost)
+    # streams that lost nothing against the golden PCM
+    clean = ~lost.any(axis=1)
+    worst_golden = max(float(np.abs(got[f][clean] - golden_pcm(
+        streams, S, f)[clean]).max()) for f in range(F))
+    check(worst_golden <= GOLDEN_TOL,
+          f"mesh: loss-free streams {worst_golden} from the golden PCM")
+    say("mesh_celt", streams=S, frames=F, loss_share=float(lost.mean()),
+        worst_err_loss_free=clean_err, worst_err_after_loss=touched_err,
+        bar=MESH_TOL, bar_after_loss=MESH_TOUCHED_TOL,
+        loss_free_streams=int(clean.sum()),
+        worst_loss_free_err_vs_golden=worst_golden,
+        deemphasis_launches=n_celt)
+    F = F_MIXED_MESH
+    _, n_mixed, clean_err, touched_err = _mesh_against_single(
+        "mesh_mixed", dev, mesh,
+        lambda m: OpusStreamPipeline(S, channels=1, mesh=m, device=dev),
+        partial(frame_batch, mono, S, packets=True), S, F, lost[:, :F])
+    say("mesh_mixed", streams=S, frames=F, worst_err_loss_free=clean_err,
+        worst_err_after_loss=touched_err, deemphasis_launches=n_mixed)
+    # ms/step, loss-free stereo plan path, the two taking turns
+    batch = partial(frame_batch, streams, S)
+    pipes = {"mesh": CeltStreamPipeline(S, 2, mesh=mesh, use_plan=True,
+                                        device=dev),
+             "single": CeltStreamPipeline(S, 2, use_plan=True, device=dev)}
+    runs = {name: [] for name in pipes}
+    for rep in range(TIMING_REPEATS):
+        for name, p in pipes.items():
+            runs[name].append(_time_stream(p, batch, warm=2 if rep == 0
+                                           else 1, steps=MESH_TIMING_STEPS))
+    say("mesh_timing", streams=S, shards=mesh.size, **{
+        f"{name}_{key}": value for name, ms in runs.items()
+        for key, value in (("ms_per_step", float(np.median(ms))),
+                           ("ms_per_step_min", min(ms)),
+                           ("ms_per_step_runs", ms))})
+    # one profiled step: the profiler is warm from the phases before
+    prof = _profile_step(lambda: pipes["mesh"].step(batch(5)), "mesh_S256")
+    say("profile_mesh_S256", predicted_launches=mesh.size * 28443,
+        gather_launches=prof["launches_by_span"].get("mesh.gather", 0),
+        gather_host_ms=prof["host_ms_by_span"].get("mesh.gather", 0.0),
+        **prof)
+    return n_celt, n_mixed
+
+
+def phase_libopus(dev, streams):
+    """Whether the host has libopus; where it has, the plan pipeline
+    against libopus's float decode of the three stereo golden streams."""
+    available = oracle.available()
+    say("libopus", available=available, version=oracle.version())
+    if not available:
+        print("libopus=unavailable", flush=True)
+        return
+    S = len(streams)
+    pipe = CeltStreamPipeline(S, 2, use_plan=True, device=dev)
+    refs = [oracle.RefDecoder(48000, 2) for _ in range(S)]
+    worst = 0.0
+    for f in range(len(streams[0].packets)):
+        got = pipe.step(frame_batch(streams, S, f)).cpu().numpy()
+        for s in range(S):
+            want = refs[s].decode_float(streams[s].packets[f], FRAME)
+            worst = max(worst, float(np.abs(got[s] - want).max()))
+    check(worst <= GOLDEN_TOL,
+          f"plan pipeline {worst} from libopus's float decode")
+    say("libopus", streams=S, frames=len(streams[0].packets),
+        worst_abs_err_vs_libopus=worst, bar=GOLDEN_TOL)
+
+
+def _phase(name, fn, *args):
+    """Run one phase and keep its wall seconds."""
+    t = time.perf_counter()
+    out = fn(*args)
+    RESULTS.setdefault("phase_seconds", {})[name] = round(
+        time.perf_counter() - t, 1)
+    return out
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1539,31 +1712,39 @@ def main() -> int:
     dev, card = phase_device()
     if OUT_DIR is not None:
         os.makedirs(OUT_DIR, exist_ok=True)
-    phase_build()
-    table = phase_kernel(dev)
+    _phase("build", phase_build)
+    mesh, s_mesh, one_card = mesh_layout(dev)
+    mesh_shapes = ((s_mesh // mesh.size, 2, FRAME),
+                   (s_mesh // mesh.size, 1, FRAME))
+    table = _phase("kernel", phase_kernel, dev,
+                   KERNEL_SHAPES + tuple(sh for sh in mesh_shapes
+                                         if sh not in KERNEL_SHAPES))
     streams = load_stereo_celt()
     mono = load_mono_mix()
     set_plan_profile(*SERVING_PROFILE)
-    n_celt, _ = phase_main_path(dev, streams)
-    phase_loss(dev, streams)
-    phase_celt_modes(dev, streams)
-    n_mixed = phase_mixed_main(dev, mono)
-    phase_device_silk(dev, mono)
-    phase_mixed_loss(dev, mono)
-    phase_encode_front(dev, streams)
-    phase_encode_celt(dev, streams)
-    nsq_batches = phase_silk_nsq(dev)
-    phase_encode_silk(dev, mono)
-    phase_timing(dev, streams, mono)
-    phase_encode_timing(dev, streams, nsq_batches)
-    phase_neural_conceal(dev)
-    dreds = phase_rdovae_decode(dev)
-    phase_dred_encode(dev)
-    phase_neural_timing(dev, dreds)
-    n_pyhost = phase_python_host(dev, streams)
-    phase_single_stream()
-    phase_deep_plc(dev)
-    n_lockstep = phase_lockstep(dev, streams, mono)
+    n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
+    _phase("loss", phase_loss, dev, streams)
+    _phase("celt_modes", phase_celt_modes, dev, streams)
+    n_mixed = _phase("mixed_main", phase_mixed_main, dev, mono)
+    _phase("device_silk", phase_device_silk, dev, mono)
+    _phase("mixed_loss", phase_mixed_loss, dev, mono)
+    _phase("encode_front", phase_encode_front, dev, streams)
+    _phase("encode_celt", phase_encode_celt, dev, streams)
+    nsq_batches = _phase("silk_nsq", phase_silk_nsq, dev)
+    _phase("encode_silk", phase_encode_silk, dev, mono)
+    _phase("timing", phase_timing, dev, streams, mono)
+    _phase("encode_timing", phase_encode_timing, dev, streams, nsq_batches)
+    _phase("neural_conceal", phase_neural_conceal, dev)
+    dreds = _phase("rdovae_decode", phase_rdovae_decode, dev)
+    _phase("dred_encode", phase_dred_encode, dev)
+    _phase("neural_timing", phase_neural_timing, dev, dreds)
+    n_pyhost = _phase("python_host", phase_python_host, dev, streams)
+    _phase("single_stream", phase_single_stream)
+    _phase("deep_plc", phase_deep_plc, dev)
+    n_lockstep = _phase("lockstep", phase_lockstep, dev, streams, mono)
+    n_mesh_celt, n_mesh_mixed = _phase(
+        "mesh", phase_mesh, dev, streams, mono, mesh, s_mesh, one_card)
+    _phase("libopus", phase_libopus, dev, streams)
     # one row for each path's shape: the path's launches (counted from 0
     # just before it ran) beside what phase 3 measured at that shape
     kernels = {"kernels": [{
@@ -1583,9 +1764,12 @@ def main() -> int:
             ("celt_python_host", PYHOST_SHAPE, n_pyhost),
             ("celt_lockstep", CELT_SHAPE, n_lockstep["celt_lockstep"]),
             ("celt_lockstep_mono", MIXED_SHAPE,
-             n_lockstep["celt_lockstep_mono"]))]}
+             n_lockstep["celt_lockstep_mono"]),
+            ("celt_mesh", mesh_shapes[0], n_mesh_celt),
+            ("mixed_mesh", mesh_shapes[1], n_mesh_mixed))]}
     RESULTS["kernels"] = kernels
-    say("run", seconds=round(time.perf_counter() - t_start, 1))
+    say("run", seconds=round(time.perf_counter() - t_start, 1),
+        **RESULTS["phase_seconds"])
     if OUT_DIR is not None:
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
             json.dump(RESULTS, fh, indent=1, default=str)

@@ -1,7 +1,9 @@
 """mousiki_tpu_torch — the PyTorch/CUDA port of mousiki_tpu's stream
 pipelines, for one NVIDIA H100. Decoders: `CeltStreamPipeline` (CELT, plan
 and non-plan mode), `SilkStreamPipeline` (SILK, host or device synthesis)
-and `OpusStreamPipeline` (mixed SILK / CELT / hybrid packets). Encoders:
+and `OpusStreamPipeline` (mixed SILK / CELT / hybrid packets); the first
+and the last also split their streams over several devices
+(`parallel/streaming.py`, `mesh=`). Encoders:
 `CeltEncodePipeline` (the device front of `ops/encode_front.py` feeding
 the native symbol encoder) and `SilkEncodePipeline` (per-stream host
 encoders whose noise-shaping quantizer calls `parallel/nsq_batch.py`

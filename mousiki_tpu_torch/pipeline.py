@@ -1,5 +1,5 @@
 """End-to-end batched stream decoders and encoders in PyTorch: port of
-the pipelines of mousiki_tpu/pipeline.py, for one device.
+the pipelines of mousiki_tpu/pipeline.py.
 
   CeltStreamPipeline   S CELT payloads --native symbol stage--> one packed
                        int32 plan arena --host-to-device copy--> device
@@ -27,8 +27,13 @@ built with g++ from `csrc/` at first use) and, for the SILK encoder, of
 the numpy host codec (`hostcodec/`). `CeltStreamPipeline(use_native=False)`
 puts the copied Python CELT decoder (`hostcodec/celt/decoder.py`) in
 front of the device synthesis instead; otherwise a native stage that does
-not build raises: there is no fallback to Python, and no multi-device mesh
-here.
+not build raises: there is no fallback to Python.
+
+The two stream decoders also take `mesh=` (a `parallel.streaming.
+StreamMesh`): the streams are split into one shard a mesh device, each
+shard a single-device pipeline of S / n streams with its own native
+batch, staging buffers and state, and the shards' PCM is gathered onto
+`device`, which must be one of the mesh's.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from .ops.silk_resampler import init_up48_state, make_up48_plan, up48_step
 from .ops.silk_synthesis import (SilkFrameParams, init_silk_state,
                                  silk_synthesis_step)
 from .ops.synthesis import FrameDesc, init_state, make_consts, synthesis_step
+from .parallel import streaming
 
 # bench.py's serving plan profile: (leaf-tier slots, fills, fill pool)
 SERVING_PROFILE = ((144, 40, 6), 2, 8)
@@ -71,11 +77,20 @@ def set_plan_profile(tiers=None, fills=None, pool=None) -> None:
     host_native.set_plan_profile(tiers, fills, pool)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port decodes on one device: the mesh path of the "
-            "reference is not ported (pass mesh=None)")
+def _shard_pipelines(mesh, n_streams: int, device, make):
+    """The shards of a mesh pipeline: `make(n, dev)`, a single-device
+    pipeline of n streams, on every mesh device, each told the global
+    index of its first stream. The shards on one device share one
+    constants cache (they have one size, so even their all-zero x_direct
+    is the same). Returns (the output device, the shards)."""
+    bounds = streaming.shard_bounds(mesh, n_streams)
+    out = streaming.output_device(mesh, device)
+    shards = [make(hi - lo, dev)
+              for (lo, hi), dev in zip(bounds, mesh.devices)]
+    caches = streaming.replicate(mesh, lambda d: {})
+    for shard, (lo, _), cache in zip(shards, bounds, caches):
+        shard._lo, shard._cache = lo, cache
+    return out, shards
 
 
 class _HostStaging:
@@ -145,6 +160,12 @@ class CeltStreamPipeline:
     hardware thread). Set `overlap_host = True` to have `decode_stream`
     decode frame k+1 on a worker thread while frame k is copied and
     launched.
+
+    mesh: a StreamMesh to split the streams over (n_streams a multiple of
+    its size); `device` is then where the gathered PCM lands, one of the
+    mesh's devices. Each shard is a pipeline of this class on its own
+    device. Under a mesh, `decode_stream` runs step by step and the
+    chunked and scanned decodes are refused.
     """
 
     def __init__(self, n_streams: int, channels: int = 2,
@@ -152,11 +173,23 @@ class CeltStreamPipeline:
                  host_threads: int = 0, use_plan: bool = False, *, device):
         if use_plan and use_native is False:
             raise ValueError("plan mode requires the native host")
-        _no_mesh(mesh)
         self.S = n_streams
         self.channels = channels
         self.use_plan = use_plan
         self.overlap_host = False
+        self._shards = None
+        self._lo = 0            # global index of stream 0 (error messages)
+        # per frame size: synthesis, PLC and combo constants and the
+        # all-zero x_direct, which is shipped only when some stream fell
+        # back to the direct decoder
+        self._cache = {}
+        if mesh is not None:
+            self.device, self._shards = _shard_pipelines(
+                mesh, n_streams, device, lambda n, dev: CeltStreamPipeline(
+                    n, channels, use_native, None, host_threads, use_plan,
+                    device=dev))
+            self._h2d = _HostStaging(self.device)
+            return
         self.device = _device.as_device(device)
         self._h2d = _HostStaging(self.device)
         self._native = None
@@ -173,30 +206,22 @@ class CeltStreamPipeline:
                 n_threads=host_threads, arena_alloc=self._h2d.alloc)
         self.state = init_state(n_streams, channels, self.device)
         self.plc_state = init_plc_state(n_streams, channels, self.device)
-        # per-frame-size constants (LM 0-3) and the all-zero x_direct,
-        # which is shipped only when some stream fell back to the direct
-        # decoder
-        self._consts = {}
-        self._mats = {}
-        self._plc_consts = {}
-        self._xd_zeros = {}
 
     def _frame_consts(self, frame_size: int):
-        if frame_size not in self._consts:
+        """(synthesis consts, PLC consts, combo mats, zero x_direct) of a
+        frame size (LM 0-3), built at its first use."""
+        if frame_size not in self._cache:
             dev = self.device
-            self._consts[frame_size] = make_consts(frame_size, dev)
-            self._mats[frame_size] = plan_combo_mats(self.channels,
-                                                     frame_size, dev)
-            self._plc_consts[frame_size] = make_plc_consts(
-                frame_size, MODE.window, dev)
-            self._xd_zeros[frame_size] = torch.zeros(
-                (self.S, self.channels, frame_size), dtype=torch.float32,
-                device=dev)
-        return (self._consts[frame_size], self._plc_consts[frame_size],
-                self._mats[frame_size])
+            self._cache[frame_size] = (
+                make_consts(frame_size, dev),
+                make_plc_consts(frame_size, MODE.window, dev),
+                plan_combo_mats(self.channels, frame_size, dev),
+                torch.zeros((self.S, self.channels, frame_size),
+                            dtype=torch.float32, device=dev))
+        return self._cache[frame_size]
 
     def _plan_step(self, frame_size, state, backing, xd, any_lost):
-        consts, plc_consts, mats = self._frame_consts(frame_size)
+        consts, plc_consts, mats, _ = self._frame_consts(frame_size)
         pcm, new_state, self.plc_state = plan_synthesis_step_plc(
             consts, plc_consts, state, self.plc_state, backing, xd, mats,
             any_lost=any_lost, channels=self.channels, frame=frame_size,
@@ -214,8 +239,8 @@ class CeltStreamPipeline:
                 payloads, frame_size)
         if np.any(rcs < 0):
             bad = int(np.argmax(rcs < 0))
-            raise ValueError(
-                f"stream {bad}: native celt decode failed rc={rcs[bad]}")
+            raise ValueError(f"stream {self._lo + bad}: native celt decode "
+                             f"failed rc={rcs[bad]}")
         return self._desc_to_device(
             x, ble2[:, :self.channels, :], iflags[:, 0] != 0,
             iflags[:, 1] != 0, iflags[:, 2], pf_gains, iflags[:, 3])
@@ -270,8 +295,8 @@ class CeltStreamPipeline:
         rcs = aux["rcs"]
         if np.any(rcs < 0):
             bad = int(np.argmax(rcs < 0))
-            raise ValueError(
-                f"stream {bad}: native celt plan decode failed rc={rcs[bad]}")
+            raise ValueError(f"stream {self._lo + bad}: native celt plan "
+                             f"decode failed rc={rcs[bad]}")
         any_direct = bool(
             host_native.plane_of(arenas, layout, "direct").any())
         # the lost mask rides the arena (lost8 plane); this host copy only
@@ -295,12 +320,11 @@ class CeltStreamPipeline:
     def _plan_args_to_device(self, host, frame_size: int):
         """Host-to-device half of the plan stage."""
         arenas, aux, any_direct, any_lost = host
-        self._frame_consts(frame_size)
         backing = self._h2d.arena_to_device(arenas["backing"])
         if any_direct:
             xd = self._h2d.to_device(aux["x_direct"])
         else:
-            xd = self._xd_zeros[frame_size]
+            xd = self._frame_consts(frame_size)[3]
         return backing, xd, any_lost
 
     def step(self, payloads: list, frame_size: int = 960):
@@ -309,14 +333,18 @@ class CeltStreamPipeline:
         payloads: S CELT payload byte strings (None = lost packet, plan
         mode only). Returns a tensor (S, frame_size, channels) on the
         pipeline's device, float32 in [-1, 1]."""
+        if self._shards is not None:
+            return streaming.gather(
+                [shard.step(payloads[shard._lo:shard._lo + shard.S],
+                            frame_size) for shard in self._shards],
+                self.device)
         if self.use_plan:
             args = self._host_decode_plan(payloads, frame_size)
             pcm, self.state = self._plan_step(frame_size, self.state, *args)
             return pcm
         desc = self._host_decode(payloads, frame_size)
-        consts, _, _ = self._frame_consts(frame_size)
-        pcm, self.state = synthesis_step(consts, self.state, desc,
-                                         n=frame_size)
+        pcm, self.state = synthesis_step(self._frame_consts(frame_size)[0],
+                                         self.state, desc, n=frame_size)
         return pcm
 
     def decode_stream(self, frames_iter, frame_size: int = 960,
@@ -334,12 +362,20 @@ class CeltStreamPipeline:
         through the scanned step: one stacked-arena copy per chunk, at the
         price of chunk * 20 ms of added latency. Yields (S, frame, C)
         results one frame at a time, exactly as chunk=1 does.
+
+        Under a mesh every frame is one `step` (no overlap, no chunks).
         """
         it = iter(frames_iter)
         if chunk > 1:
+            if self._shards is not None:
+                raise ValueError("chunked decode runs on one device, "
+                                 "not under a mesh")
             if not self.use_plan:
                 raise ValueError("chunked decode needs plan mode")
             return self._decode_stream_chunked(it, frame_size, chunk)
+        if self._shards is not None:
+            return (self._h2d.finish(self.step(payloads, frame_size))
+                    for payloads in it)
         if not self.use_plan:
             return self._decode_stream_descs(it, frame_size)
         return self._decode_stream_plan(it, frame_size, self.overlap_host)
@@ -373,7 +409,7 @@ class CeltStreamPipeline:
             yield self._h2d.finish(out)
 
     def _decode_stream_descs(self, it, frame_size: int):
-        consts, _, _ = self._frame_consts(frame_size)
+        consts = self._frame_consts(frame_size)[0]
         pending = None
         for payloads in it:
             desc = self._host_decode(payloads, frame_size)
@@ -419,6 +455,9 @@ class CeltStreamPipeline:
     def _host_decode_chunk(self, frames: list, frame_size: int):
         """Pure-CPU half of the scanned chunk decode (native symbol stage
         into the contiguous (K, words) backing)."""
+        if self._shards is not None:
+            raise ValueError("the scanned decode runs on one device, "
+                             "not under a mesh")
         if not self.use_plan:
             raise ValueError("the scanned decode needs plan mode")
         if not frames:
@@ -444,12 +483,10 @@ class CeltStreamPipeline:
         """Device half: copy the stacked arenas and run the scanned step.
         The returned (K, S, frame, C) tensor is not synchronised."""
         backing2d, aux_list, any_direct, any_lost = host
-        consts, plc_consts, mats = self._frame_consts(frame_size)
+        consts, plc_consts, mats, xd = self._frame_consts(frame_size)
         if any_direct:
             xd = self._h2d.to_device(np.stack(
                 [aux["x_direct"] for aux in aux_list]))
-        else:
-            xd = self._xd_zeros[frame_size]
         pcm, self.state, self.plc_state = plan_synthesis_scan(
             consts, plc_consts, self.state, self.plc_state,
             self._h2d.arena_to_device(backing2d), xd, mats,
@@ -555,7 +592,8 @@ def _masked(mask, new, old):
 
 class OpusStreamPipeline:
     """Decode S parallel Opus streams of mixed SILK / CELT / hybrid 20 ms
-    packets, one frame per step, batched on one device.
+    packets, one frame per step, batched on one device (or split over a
+    mesh).
 
     The native unified host (opus_host_native) routes each packet by TOC:
     CELT frames emit packed band plans, SILK frames decode to pcm at
@@ -576,6 +614,12 @@ class OpusStreamPipeline:
     silk_synthesis="device" (mono): WB SILK streams carry their frame
     parameters on the wire and the LTP/LPC core runs on the device
     (ops/silk_synthesis.py); such streams must be lossless.
+
+    mesh: a StreamMesh to split the streams over (n_streams a multiple of
+    its size), one pipeline of this class a shard; `device` is where the
+    gathered PCM lands, one of the mesh's devices. Packets, fec_packets
+    and the feeder's queues stay indexed by global stream; `last_modes`
+    holds every shard's modes in stream order.
     """
 
     def __init__(self, n_streams: int, host_threads: int = 0,
@@ -583,21 +627,29 @@ class OpusStreamPipeline:
                  silk_synthesis: str = "host", *, device):
         from .opus_host_native import NativeOpusHostBatch
 
-        _no_mesh(mesh)
         if silk_synthesis not in ("host", "device"):
             raise ValueError("silk_synthesis must be 'host' or 'device'")
         if silk_synthesis == "device" and channels != 1:
             raise ValueError("device SILK synthesis: mono pipelines only")
         self.S = n_streams
         self.channels = channels
+        self._shards = None
+        self._lo = 0            # global index of stream 0 (error messages)
+        self._cache = {}        # device constants, built at the first step
+        self.last_modes = None
+        self._queues = None  # feeder mode (push/tick), built on first push
+        if mesh is not None:
+            self.device, self._shards = _shard_pipelines(
+                mesh, n_streams, device, lambda n, dev: OpusStreamPipeline(
+                    n, host_threads, channels, None, silk_synthesis,
+                    device=dev))
+            self._h2d = _HostStaging(self.device)
+            return
         self.device = dev = _device.as_device(device)
         self._h2d = _HostStaging(dev)
         self._silk_device = silk_synthesis == "device"
         self._native = NativeOpusHostBatch(n_streams, channels, host_threads,
                                            arena_alloc=self._h2d.alloc)
-        self._consts = make_consts(960, dev)
-        self._plc_consts = make_plc_consts(960, MODE.window, dev)
-        self._mats = plan_combo_mats(channels, 960, dev)
         self.state = init_state(n_streams, channels, dev)
         self.plc_state = init_plc_state(n_streams, channels, dev)
         # one up-resampler plan per SILK internal rate; a stream's rate
@@ -607,20 +659,29 @@ class OpusStreamPipeline:
         self._rows = n_streams * channels
         self.rs_states = {r: init_up48_state(self._rows, dev)
                           for r in _SILK_RATES}
-        self._plans = {r: make_up48_plan(20 * r, r, dev)
-                       for r in _SILK_RATES}
         self.silk_prev = torch.zeros((self._rows,), dtype=torch.float32,
                                      device=dev)
         self.prev_fs = torch.full((n_streams,), 16, dtype=torch.int32,
                                   device=dev)
-        self._xd_zeros = torch.zeros((n_streams, channels, 960),
-                                     dtype=torch.float32, device=dev)
         self.silk_dev_state = None
         if self._silk_device:
             self.silk_dev_state = init_silk_state(n_streams, 16, dev)
             self._last_real_mode = np.zeros(n_streams, np.int32)
-        self.last_modes = None
-        self._queues = None  # feeder mode (push/tick), built on first push
+
+    def _consts(self) -> dict:
+        """The device constants: synthesis, PLC and combo constants, one
+        up-resampler plan per SILK rate and the all-zero x_direct."""
+        k = self._cache
+        if not k:
+            dev = self.device
+            k.update(
+                synthesis=make_consts(960, dev),
+                plc=make_plc_consts(960, MODE.window, dev),
+                mats=plan_combo_mats(self.channels, 960, dev),
+                up48={r: make_up48_plan(20 * r, r, dev) for r in _SILK_RATES},
+                xd_zeros=torch.zeros((self.S, self.channels, 960),
+                                     dtype=torch.float32, device=dev))
+        return k
 
     # ------------------------------------------------------------------
     def _silk_lane(self, silk16, sf, si, dev_mask):
@@ -672,7 +733,7 @@ class OpusStreamPipeline:
             x_mono = torch.cat([self.silk_prev[:, None], xs[:, :L - 1]],
                                dim=1)
             x = torch.where(sdel_rows[:, None], xs[:, :L], x_mono)
-            up_r, rs_r = up48_step(x, st_r, self._plans[r])
+            up_r, rs_r = up48_step(x, st_r, self._consts()["up48"][r])
             up = torch.where(on[:, None], up_r, up)
             self.rs_states[r] = _masked(on, rs_r, old)
             new_prev = torch.where(on, xs[:, L - 1], new_prev)
@@ -686,9 +747,10 @@ class OpusStreamPipeline:
         device-SILK lane (silk_synthesis="device"), the three per-rate
         resamplers and the sum."""
         S = self.S
+        k = self._consts()
         pcm, self.state, self.plc_state = plan_synthesis_step_plc(
-            self._consts, self._plc_consts, self.state, self.plc_state,
-            backing, xd, self._mats, any_lost=any_lost,
+            k["synthesis"], k["plc"], self.state, self.plc_state,
+            backing, xd, k["mats"], any_lost=any_lost,
             channels=self.channels, frame=960, n_streams=S)
         xs = silk16.to(torch.float32)                      # (rows, 320)
         if sf is not None:
@@ -765,17 +827,17 @@ class OpusStreamPipeline:
                 continue
             if item[0] == "h":  # 10 ms SILK half-tick frames, paired
                 _, pay, fs = item
-                half1 = self._native.decode_silk_frames(s, pay, fs, 10)
+                half1 = self._silk_frames(s, pay, fs, 10)
                 if q and q[0] is not None and q[0][0] == "h" \
                         and q[0][2] == fs:
                     _, pay2, _ = q.popleft()
-                    half2 = self._native.decode_silk_frames(s, pay2, fs, 10)
+                    half2 = self._silk_frames(s, pay2, fs, 10)
                 else:
                     half2 = np.zeros(10 * fs, np.int16)  # half underrun
                 chunk = np.concatenate([half1, half2])
             elif item[0] == "m":  # head of a 40/60 ms SILK frame
                 _, pay, fs, dur = item
-                pcm = self._native.decode_silk_frames(s, pay, fs, dur)
+                pcm = self._silk_frames(s, pay, fs, dur)
                 L = 20 * fs
                 for k in range(dur // 20 - 1, 0, -1):
                     q.appendleft(("pcm", pcm[k * L:(k + 1) * L], fs))
@@ -785,6 +847,30 @@ class OpusStreamPipeline:
             fills[s] = (chunk, fs)
             packets[s] = SKIP
         return self.step(packets, 960, _fills=fills)
+
+    def _silk_frames(self, s: int, payload: bytes, fs: int, ms: int):
+        """Stream s's SILK frames of `ms` ms decoded natively at once, by
+        the native batch that holds the stream."""
+        if self._shards is None:
+            return self._native.decode_silk_frames(s, payload, fs, ms)
+        shard = self._shards[s // self._shards[0].S]
+        return shard._native.decode_silk_frames(s - shard._lo, payload, fs,
+                                                ms)
+
+    def _step_sharded(self, packets, fec_packets, fills):
+        """Each shard steps its own streams; the feeder's fills go to the
+        shard that holds their stream, at its index there."""
+        pcms, modes = [], []
+        for shard in self._shards:
+            lo, hi = shard._lo, shard._lo + shard.S
+            pcms.append(shard.step(
+                packets[lo:hi], 960,
+                None if fec_packets is None else fec_packets[lo:hi],
+                {s - lo: v for s, v in (fills or {}).items()
+                 if lo <= s < hi}))
+            modes.append(shard.last_modes)
+        self.last_modes = np.concatenate(modes)
+        return streaming.gather(pcms, self.device)
 
     def step(self, packets: list, frame_size: int = 960,
              fec_packets: list | None = None, _fills: dict | None = None):
@@ -798,6 +884,8 @@ class OpusStreamPipeline:
             # offsets; any other frame size would corrupt the arena layout
             raise ValueError("OpusStreamPipeline supports 20 ms (960-sample) "
                              f"frames only, got {frame_size}")
+        if self._shards is not None:
+            return self._step_sharded(packets, fec_packets, _fills)
         self._h2d.wait()
         with record_function("host.opus_decode"):
             out = self._native.decode(packets, frame_size, fec_packets,
@@ -812,8 +900,8 @@ class OpusStreamPipeline:
             if bad.any():
                 raise ValueError(
                     "silk_synthesis='device' serves lossless SILK "
-                    f"streams; stream {int(np.argmax(bad))} lost a frame "
-                    "(use the default host synthesis for lossy SILK)")
+                    f"streams; stream {self._lo + int(np.argmax(bad))} lost "
+                    "a frame (use the default host synthesis for lossy SILK)")
             self._last_real_mode = np.where(concealed,
                                             self._last_real_mode, modes)
         if _fills:
@@ -825,8 +913,8 @@ class OpusStreamPipeline:
         rcs = aux["rcs"]
         if np.any(rcs < 0):
             bad = int(np.argmax(rcs < 0))
-            raise ValueError(f"stream {bad}: native opus host decode "
-                             f"failed rc={rcs[bad]}")
+            raise ValueError(f"stream {self._lo + bad}: native opus host "
+                             f"decode failed rc={rcs[bad]}")
         self.last_modes = modes
         # device CELT concealment only for concealed streams (rc 1), not
         # for FEC-recovered ones (rc 2: the LBRR frame replaces the loss);
@@ -837,7 +925,8 @@ class OpusStreamPipeline:
         any_direct = bool(
             host_native.plane_of(arenas, layout, "direct").any())
         to_dev = self._h2d.to_device
-        xd = to_dev(aux["x_direct"]) if any_direct else self._xd_zeros
+        xd = (to_dev(aux["x_direct"]) if any_direct
+              else self._consts()["xd_zeros"])
         lane = {}
         if self._silk_device:
             lane = dict(sf=to_dev(out[7][0]), si=to_dev(out[7][1]),

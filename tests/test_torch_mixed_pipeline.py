@@ -23,6 +23,7 @@ from mousiki_tpu.ops import plc_jax, silk_resampler_jax, synthesis_jax
 from mousiki_tpu.pipeline import OpusStreamPipeline as JaxPipeline
 from mousiki_tpu.testing import oracle
 from mousiki_tpu_torch import convert
+from mousiki_tpu_torch.parallel.streaming import StreamMesh
 from mousiki_tpu_torch.pipeline import OpusStreamPipeline
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -327,8 +328,8 @@ def test_handover_from_jax_mid_stream(mono):
 def test_mixed_pipeline_arguments():
     with pytest.raises(TypeError):
         OpusStreamPipeline(2)                           # device is required
-    with pytest.raises(NotImplementedError, match="mesh"):
-        OpusStreamPipeline(2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide the mesh size"):
+        OpusStreamPipeline(2, mesh=StreamMesh(["cpu"] * 3), device="cpu")
     with pytest.raises(ValueError, match="mono"):
         OpusStreamPipeline(2, channels=2, silk_synthesis="device",
                            device="cpu")

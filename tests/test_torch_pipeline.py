@@ -22,6 +22,7 @@ from mousiki_tpu.celt import host_native as jax_host_native
 from mousiki_tpu.ops import plc_jax, synthesis_jax
 from mousiki_tpu.pipeline import CeltStreamPipeline as JaxPipeline
 from mousiki_tpu_torch import convert
+from mousiki_tpu_torch.parallel.streaming import StreamMesh
 from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltStreamPipeline,
                                         set_plan_profile)
 from torch_threads import one_torch_thread  # noqa: F401
@@ -203,8 +204,8 @@ def test_empty_streams_and_chunk_arguments(serving):
     python = CeltStreamPipeline(3, use_native=False, device="cpu")
     with pytest.raises(ValueError, match="no loss concealment"):
         python.step([None] + frame_batch(serving, 3, 0)[1:])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        CeltStreamPipeline(3, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide the mesh size"):
+        CeltStreamPipeline(3, mesh=StreamMesh(["cpu"] * 2), device="cpu")
 
 
 def test_constructor_takes_the_reference_arguments(serving):

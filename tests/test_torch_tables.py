@@ -263,9 +263,12 @@ def test_hostcodec_is_the_encoder_closure():
     extensions, tonality analysis, DRED); then the single-stream API on
     top of it (16 files: OpusDecoder with softclip and the deep-PLC shim,
     codec, ctl, utils/debug, multistream, projection, the Ogg containers,
-    lightweight, celt/custom), and nothing else."""
+    lightweight, celt/custom); the plan recorder and packer that the
+    copied CELT decoder and the native plan packer's tests need
+    (celt/plan, celt/plan_pack); the libopus oracle (testing/); and
+    nothing else."""
     files = _hostcodec_files()
-    assert len(files) == 62 and set(_HOSTCODEC_OWN) <= set(files)
+    assert len(files) == 66 and set(_HOSTCODEC_OWN) <= set(files)
     for rel in ("opus_encoder.py", "silk/encoder.py", "silk/nsq_del_dec.py",
                 "silk/noise_shape.py", "celt/encoder.py",
                 "bitstream/entcode.py", "bitstream/extensions.py",
@@ -276,7 +279,9 @@ def test_hostcodec_is_the_encoder_closure():
                 "multistream.py", "projection.py", "projection_tables.py",
                 "containers/__init__.py", "containers/ogg.py",
                 "containers/picture.py", "containers/opusfile.py",
-                "lightweight.py", "celt/custom.py"):
+                "lightweight.py", "celt/custom.py", "celt/plan.py",
+                "celt/plan_pack.py", "testing/__init__.py",
+                "testing/oracle.py"):
         assert rel in files
 
 
@@ -486,7 +491,11 @@ for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.ops.celt_lockstep",
              "mousiki_tpu_torch.ops.celt_lockstep_walk",
              "mousiki_tpu_torch.ops.celt_lockstep_emit",
-             "mousiki_tpu_torch.ops.celt_lockstep_top"):
+             "mousiki_tpu_torch.ops.celt_lockstep_top",
+             "mousiki_tpu_torch.hostcodec.celt.plan",
+             "mousiki_tpu_torch.hostcodec.celt.plan_pack",
+             "mousiki_tpu_torch.hostcodec.testing.oracle",
+             "mousiki_tpu_torch.parallel.streaming"):
     assert name in sys.modules, name
 # every top-level name of the reference resolves without it
 for name in mousiki_tpu_torch.__all__:
