@@ -35,7 +35,13 @@ thing if any module of mousiki_tpu is loaded):
      before);
   5. loss: 256 streams with ~10% seeded packet loss, the first 8 streams
      against the port run on the CPU (5e-3 on lost and just-recovered
-     frames, 2e-4 elsewhere);
+     frames, 2e-4 elsewhere); the batch check: the same 256 streams as
+     the first 256 of a batch of 1024 (the other 768 with their own
+     loss) within 1e-5 on every lane, and 16 streams with 30% loss from
+     frame 2 as one batch, as 8 batches of 2 and as 5 + 11, 4 frames,
+     every lane within 1e-5 and each stage of the step compared
+     (batch_stages.py: the worst error a stage and the first stage that
+     differs are printed);
   6. the CELT decoder's other modes at S = 256, 8 frames:
      decode_frames_scanned, decode_stream(chunk=4) and decode_stream with
      overlap_host each equal to the stepped output exactly, and the
@@ -50,7 +56,9 @@ thing if any module of mousiki_tpu is loaded):
      the device-SILK lane of the mixed decoder within 5e-3 of its host
      lane;
   9. mixed loss: ~10% seeded loss on the mono mix, the first 8 streams
-     against the port run on the CPU (5e-3 / 2e-4 as in phase 5);
+     against the port run on the CPU (5e-3 / 2e-4 as in phase 5), and
+     the batch check of phase 5 (16 streams with 15% loss from frame 1,
+     3 frames);
  10. encode front: ops/encode_front.front_step at S = 256, stereo, on the
      golden stereo PCM (stream s replays fixture s % 3), 12 frames with
      the state threaded, against the same function on the CPU: every
@@ -146,8 +154,9 @@ thing if any module of mousiki_tpu is loaded):
      use_plan=True) on the stereo fixtures (12 frames) and
      OpusStreamPipeline(256, mesh=...) on the mono mix (6 frames), ~10%
      seeded loss from frame 2, each against a single-device pipeline fed
-     the same frames: 1e-5 on the streams that have lost nothing yet,
-     5e-4 on the others, the streams that lost nothing within 2e-4 of the
+     the same frames: 1e-5 on every lane (the worst on the streams that
+     have lost nothing yet and on the others printed apart), the streams
+     that lost nothing within 2e-4 of the
      golden PCM, and one kernel launch a shard a step (counts reset just
      before the mesh run); ms/step of the mesh and of the single-device
      pipeline at S = 256, loss-free, taking turns, three runs of 4 steps;
@@ -182,6 +191,7 @@ from functools import partial
 import numpy as np
 import torch
 
+import batch_stages
 from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
                             load_mono_mix, load_stereo_celt)
 from mousiki_tpu_torch._device import require_cuda
@@ -226,11 +236,10 @@ ENCODE_BITRATE = 128000
 # the card's CELT encode -> decode round trip may fall this far (dB) under
 # the same round trip through the port on the CPU, made in the same run
 ENCODE_SNR_MARGIN_DB = 3.0
-# the stream mesh against the single-device pipeline: on the streams that
-# have lost nothing yet, and on the others (the products round
-# differently at S / n and S streams, and the concealment and the state
-# it leaves grow that: up to 3.5e-5 on the CPU port)
-MESH_TOL, MESH_TOUCHED_TOL = 1e-5, 5e-4
+# a stream's PCM against the same stream in another batch (the mesh's
+# shards, a wider batch, smaller batches): the reference's bar
+# (tests/test_sharded_plan.py), on every lane, lost or received
+BATCH_TOL = 1e-5
 MESH_TIMING_STEPS = 4
 F_MIXED_MESH = 6                # frames of the mixed mesh check
 RESULTS: dict = {}
@@ -429,19 +438,24 @@ def phase_main_path(dev, streams):
 
 def _loss_phase(phase, dev, make_pipe, batch_fn):
     """S = 256 streams with ~10% seeded packet loss on the card; the first
-    8 streams against the same pipeline run on the CPU."""
+    8 streams against the same pipeline run on the CPU, and all 256
+    against the same streams as the first 256 of a batch of 1024 (the
+    others with their own loss), every lane within BATCH_TOL."""
     S, F, K = S_MAIN, 12, 8
     rng = np.random.default_rng(17)
-    lost = rng.random((S, F)) < 0.10
+    lost = rng.random((S_WIDE, F)) < 0.10
     lost[:, 0] = False
     lost[1, 5:7] = True
     gpu = make_pipe(S, dev)
+    wide = make_pipe(S_WIDE, dev)
     cpu = make_pipe(K, "cpu")
-    worst_rx, worst_lost = 0.0, 0.0
+    worst_rx, worst_lost, worst_wide = 0.0, 0.0, 0.0
     for f in range(F):
-        batch = batch_fn(S, f, lost[:, f])
-        got = gpu.step(batch).cpu().numpy()
+        batch = batch_fn(S_WIDE, f, lost[:, f])
+        got = gpu.step(batch[:S]).cpu().numpy()
         check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
+        worst_wide = max(worst_wide, float(np.abs(
+            wide.step(batch)[:S].cpu().numpy() - got).max()))
         want = cpu.step(batch[:K]).numpy()
         for s in range(K):
             err = float(np.abs(got[s] - want[s]).max())
@@ -453,21 +467,52 @@ def _loss_phase(phase, dev, make_pipe, batch_fn):
                 worst_lost = max(worst_lost, err)
             else:
                 worst_rx = max(worst_rx, err)
-    say(phase, streams=S, frames=F, loss_share=float(lost.mean()),
+    check(worst_wide <= BATCH_TOL,
+          f"{phase}: {worst_wide} between S = {S} and the first {S} of "
+          f"S = {S_WIDE}")
+    say(phase, streams=S, frames=F, loss_share=float(lost[:S].mean()),
         compared_streams=K, worst_err_received=worst_rx,
-        worst_err_concealed=worst_lost)
+        worst_err_concealed=worst_lost,
+        worst_err_vs_first_of_wide_batch=worst_wide, wide_streams=S_WIDE,
+        bar=BATCH_TOL)
+
+
+def _batch_stages(phase, make_pipe, batch_fn, n_frames, share, seed,
+                  first_loss):
+    """16 lossy streams as one batch, as 8 batches of 2 and as 5 + 11
+    (batch_stages.split_errors): every lane within BATCH_TOL; each
+    stage's worst error and the first stage that differs printed."""
+    S = 16
+    frames, lost = batch_stages.lossy_frames(batch_fn, S, n_frames, share,
+                                             seed, first_loss)
+    check(bool(lost.any()), f"{phase}: no loss drawn")
+    res = batch_stages.split_errors(make_pipe, frames, S,
+                                    {"8x2": (2,) * 8, "5+11": (5, 11)})
+    for label in ("8x2", "5+11"):
+        r = res[label]
+        say(f"{phase}_batch_{label}", streams=S, frames=n_frames,
+            worst_pcm_err=r["pcm"], first_difference=r["first"],
+            **{f"stage_{k}": v for k, v in r["stages"].items()})
+        check(r["pcm"] <= BATCH_TOL,
+              f"{phase}: {r['pcm']} between S = {S} and batches {label}")
 
 
 def phase_loss(dev, streams):
     _loss_phase("loss", dev,
                 lambda S, d: CeltStreamPipeline(S, use_plan=True, device=d),
                 partial(frame_batch, streams))
+    _batch_stages("loss", lambda n: CeltStreamPipeline(n, use_plan=True,
+                                                       device=dev),
+                  partial(frame_batch, streams), 4, 0.3, 5, 2)
 
 
 def phase_mixed_loss(dev, mono):
     _loss_phase("mixed_loss", dev,
                 lambda S, d: OpusStreamPipeline(S, channels=1, device=d),
                 partial(frame_batch, mono, packets=True))
+    _batch_stages("mixed_loss",
+                  lambda n: OpusStreamPipeline(n, channels=1, device=dev),
+                  partial(frame_batch, mono, packets=True), 3, 0.15, 31, 1)
 
 
 def phase_celt_modes(dev, streams):
@@ -1572,9 +1617,10 @@ def mesh_layout(dev):
 
 def _mesh_against_single(name, dev, mesh, make_pipe, batch_fn, S, F, lost):
     """F frames through a single-device pipeline and then through the mesh
-    (launch counts reset just before the mesh run); returns the mesh's PCM
-    on the host, its kernel launches and the worst differences on the
-    streams that have lost nothing yet and on the others."""
+    (launch counts reset just before the mesh run), every lane within
+    BATCH_TOL; returns the mesh's PCM on the host, its kernel launches and
+    the worst differences on the streams that have lost nothing yet and
+    on the others."""
     single = make_pipe(None)
     want = [single.step(batch_fn(f, lost[:, f])).cpu().numpy()
             for f in range(F)]
@@ -1597,11 +1643,9 @@ def _mesh_against_single(name, dev, mesh, make_pipe, batch_fn, S, F, lost):
         worst_clean = max(worst_clean, float(err[~touched].max()))
         if touched.any():
             worst_touched = max(worst_touched, float(err[touched].max()))
-    check(worst_clean <= MESH_TOL,
-          f"{name}: loss-free streams {worst_clean} from the single device")
-    check(worst_touched <= MESH_TOUCHED_TOL,
-          f"{name}: streams after a loss {worst_touched} from the single "
-          "device")
+    check(max(worst_clean, worst_touched) <= BATCH_TOL,
+          f"{name}: {worst_clean} on the streams that lost nothing, "
+          f"{worst_touched} on the others, from the single device")
     check(launches == F * mesh.size,
           f"{name}: {launches} deemphasis launches, {F * mesh.size} "
           "expected (one a shard a step)")
@@ -1633,7 +1677,7 @@ def phase_mesh(dev, streams, mono, mesh, S, one_card):
           f"mesh: loss-free streams {worst_golden} from the golden PCM")
     say("mesh_celt", streams=S, frames=F, loss_share=float(lost.mean()),
         worst_err_loss_free=clean_err, worst_err_after_loss=touched_err,
-        bar=MESH_TOL, bar_after_loss=MESH_TOUCHED_TOL,
+        bar=BATCH_TOL,
         loss_free_streams=int(clean.sum()),
         worst_loss_free_err_vs_golden=worst_golden,
         deemphasis_launches=n_celt)
@@ -1661,7 +1705,7 @@ def phase_mesh(dev, streams, mono, mesh, S, one_card):
                            ("ms_per_step_runs", ms))})
     # one profiled step: the profiler is warm from the phases before
     prof = _profile_step(lambda: pipes["mesh"].step(batch(5)), "mesh_S256")
-    say("profile_mesh_S256", predicted_launches=mesh.size * 28443,
+    say("profile_mesh_S256", predicted_launches=mesh.size * 28448,
         gather_launches=prof["launches_by_span"].get("mesh.gather", 0),
         gather_host_ms=prof["host_ms_by_span"].get("mesh.gather", 0.0),
         **prof)

@@ -16,7 +16,12 @@ does to the signal after the symbols are known:
   P4  anti_collapse (bands.rs:3220) with host-computed r and device LCG.
 
 uint32 arithmetic runs in int64 holding values in [0, 2^32): torch has
-almost no uint32 ops. Everything else is float32.
+almost no uint32 ops. The leaves are float32; from the pool on, the X
+plane is float64 through P3 (norm buffers, operator products, fill
+energies, stereo merges) and P4 (band energies) and is rounded to
+float32 once, at the end, so that a stream's X does not depend on its
+batch (_device.py). Mixing the two widths in one op is avoided: torch's
+`where` casts a mismatched operand with a launch of its own.
 """
 
 from __future__ import annotations
@@ -59,11 +64,11 @@ def _spread_factor_t(device: torch.device) -> torch.Tensor:
 
 def plan_combo_mats(channels: int, frame: int, device):
     """Stacked per-band pre/post combo operators, identity-padded to
-    NBMAX: (21, NC, NBMAX, NBMAX) float32 each, on `device`."""
-    dev = _device.as_device(device)
+    NBMAX: (21, NC, NBMAX, NBMAX) each, the reference's float32 values
+    held in float64, on `device`."""
     pre_all, post_all = plan_combo_mats_np(frame)
-    return (torch.as_tensor(pre_all, device=dev),
-            torch.as_tensor(post_all, device=dev))
+    return (_device.operator64(pre_all, device),
+            _device.operator64(post_all, device))
 
 
 def _lcg(A_J, C_J, d, seed):
@@ -321,7 +326,7 @@ def _p4_consts(lm: int, start: int, end: int, device: torch.device):
     qpos = np.arange(nbins)
     valid = band_of >= 0
     n0 = np.array([eb[i + 1] - eb[i] for i in range(nb)], np.int64)
-    ind = np.zeros((nbins, nb), np.float32)
+    ind = np.zeros((nbins, nb), np.float64)
     ind[qpos[valid], band_of[valid]] = 1.0
     in_rng = np.zeros(nb, np.int64)
     in_rng[start:end] = 1
@@ -380,7 +385,7 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
                                      p["pvq_b"][t].reshape(-1),
                                      p["pvq_spread"][t].reshape(-1), nmax)
             parts.append(vals.reshape(S, slots * nmax))
-        pool = torch.cat(parts, dim=1)
+        pool = torch.cat(parts, dim=1).double()
 
     # ---- pool -> X gather map from the per-slot leaf offsets (pvq_dst):
     # spans are disjoint, so a difference-array cumsum gives
@@ -411,8 +416,10 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
     with record_function("plan.bands"):
         pre_stack, post_stack = mats
         NBMAX = 22 * M
-        norm = torch.zeros((S, npad), dtype=f32, device=dev)
-        norm2 = torch.zeros((S, npad), dtype=f32, device=dev)
+        f64 = torch.float64
+        norm = torch.zeros((S, npad), dtype=f64, device=dev)
+        norm2 = torch.zeros((S, npad), dtype=f64, device=dev)
+        zero64 = torch.zeros((), dtype=f64, device=dev)
         posb = torch.arange(NBMAX, device=dev)
         rows = torch.arange(S, device=dev)
 
@@ -463,14 +470,14 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
                 plus = (seeds & 0x8000) != 0
                 fold_v = torch.where(plus, scr[:, None, :] + 1.0 / 256,
                                      scr[:, None, :] - 1.0 / 256)
-                noise_v = (_as_i32(seeds) >> 20).to(f32)
+                noise_v = (_as_i32(seeds) >> 20).to(f64)
                 vals = torch.where(p["fill_fold"][:, i, slot, :, None],
                                    fold_v, noise_v)
-                vals = torch.where(inw, vals, zero)
+                vals = torch.where(inw, vals, zero64)
                 E = 1e-15 + (vals * vals).sum(dim=2)
                 g = p["fill_gain"][:, i, slot, :] / torch.sqrt(E)
                 live = fa[:, :, None] & inw
-                contrib = torch.where(live, vals * g[:, :, None], zero)
+                contrib = torch.where(live, vals * g[:, :, None], zero64)
                 covered = live.any(dim=1)
                 sl = torch.where(covered, contrib.sum(dim=1), cur)
                 post_m = post_stack[i][p["call_post"][:, i, slot]]
@@ -511,8 +518,8 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
                 ma = p["merge_active"][:, i]
                 mmid = p["merge_mid"][:, i]
                 x0, x1 = bx
-                x0v = torch.where(valid, x0, zero)
-                x1v = torch.where(valid, x1, zero)
+                x0v = torch.where(valid, x0, zero64)
+                x1v = torch.where(valid, x1, zero64)
                 xp = (x0v * x1v).sum(dim=1) * mmid
                 sd = (x1v * x1v).sum(dim=1)
                 el = mmid * mmid + sd - 2 * xp
@@ -544,6 +551,7 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
         nbins, bmap, kmap = q["nbins"], q["bmap"], q["kmap"]
         vmask = q["vmask"]
         ac_on = p["ac_on"]
+        ac_r = p["ac_r"].double()
         kk = torch.arange(M, device=dev)
         cl = ((~p["ac_masks"][:, :, :, None]) >> kk[None, None, None, :]) & 1
         cl = cl * q["in_rng"][None, :, None, None]          # (S, nb, 2, M)
@@ -559,7 +567,7 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
             dd = torch.clamp(cum_prior[:, :, c][:, bmap] + ddraw, 0,
                              LCG_MAX - 1)
             seeds = _lcg(A_J, C_J, dd, p["ac_seed"][:, None])
-            rq = p["ac_r"][:, c, :][:, bmap]
+            rq = ac_r[:, c, :][:, bmap]
             val = torch.where((seeds & 0x8000) != 0, rq, -rq)
             xplane = X[:, c * frame:c * frame + nbins]
             inject = clrq & ac_on[:, None] & vmask[None, :]
@@ -568,10 +576,11 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
             gb = 1.0 / torch.sqrt(Eb)
             anyb = (cnt[:, :, c] > 0) & ac_on[:, None]           # (S, nb)
             gq = torch.where(anyb[:, bmap] & vmask[None, :], gb[:, bmap],
-                             torch.ones((), dtype=f32, device=dev))
+                             torch.ones((), dtype=f64, device=dev))
             X[:, c * frame:c * frame + nbins] = x2 * gq
 
-    return torch.where(p["direct"][:, None], x_direct.reshape(S, -1), X)
+    return torch.where(p["direct"][:, None], x_direct.reshape(S, -1),
+                       X.float())
 
 
 # ------------------------------------------------------- arenas -> planes

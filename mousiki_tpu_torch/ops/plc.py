@@ -6,6 +6,11 @@ For S streams at once: open-loop pitch search on the decode history,
 excitation extension with per-period decay, LPC synthesis with the
 decoder's saturation, comb-filter undo, and forward-MDCT re-entry. The
 caller masks the result into the synthesis step per stream.
+
+Every sum and product across a row (the correlations, energies, the
+autocorrelation, the Levinson and LPC-synthesis inner products, the
+re-entry MDCT) accumulates in float64 and is rounded to float32 once, so
+that a stream conceals alike whatever batch it shares (_device.py).
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ def make_plc_consts(frame: int, window, device) -> dict:
         return torch.as_tensor(a, device=dev)
 
     return {
-        "F": t(mdct_matrix(frame).astype(np.float32)),
+        "F": _device.operator64(mdct_matrix(frame), dev),
         "fold": (t(i1.astype(np.int64)), t(i2.astype(np.int64)), t(g1),
                  t(g2)),
         "han": t(han),
@@ -72,20 +77,21 @@ def _pitch_search(mem):
     mono = mem[:, :, :DBS].mean(dim=1)            # (S, 2048)
     lp = 0.5 * (mono[:, 0::2] + mono[:, 1::2])    # (S, 1024)
     S, n = lp.shape
-    frame = lp[:, n - 512:]
-    e_f = (frame * frame).sum(-1) + 1e-9
+    lp64 = lp.double()
+    frame = lp64[:, n - 512:]
+    e_f = ((frame * frame).sum(-1) + 1e-9).float()
     lo = PLC_PITCH_LAG_MIN // 2
     hi = PLC_PITCH_LAG_MAX // 2
-    # c[lag2] = frame . lp[n-512-lag2 : n-lag2]: a grouped correlation, in
-    # full float32 (the policy in _device turns cuDNN's TF32 off)
-    out = F.conv1d(lp[None], frame[:, None, :], groups=S)[0]   # (S, n-511)
-    e2 = torch.cumsum(lp * lp, dim=-1)
+    # c[lag2] = frame . lp[n-512-lag2 : n-lag2]: a grouped correlation;
+    # correlation and energies in float64, each rounded once
+    out = F.conv1d(lp64[None], frame[:, None, :], groups=S)[0]  # (S, n-511)
+    e2 = torch.cumsum(lp64 * lp64, dim=-1)
     e2p = torch.cat([torch.zeros((S, 1), dtype=e2.dtype, device=e2.device),
                      e2], dim=-1)
     lags = torch.arange(lo, hi + 1, device=mem.device)
     j = n - 512 - lags
-    c = out[:, j]
-    e = e2p[:, j + 512] - e2p[:, j] + 1e-9
+    c = out[:, j].float()
+    e = (e2p[:, j + 512] - e2p[:, j] + 1e-9).float()
     score = torch.where(c > 0, c * torch.rsqrt(e_f[:, None] * e),
                         torch.full_like(c, -1.0))
     best = torch.argmax(score, dim=-1)
@@ -96,18 +102,20 @@ def _pitch_search(mem):
 def _lpc_fit(consts, hist):
     """(S, C, HIST) history -> (S, C, ORDER) LPC (windowed autocorr +
     Levinson with the decoder's noise floor, clamps and bw expansion)."""
-    xw = hist * consts["han"]
+    xw = (hist * consts["han"]).double()
     n = HIST
     ac = torch.stack([(xw[..., :n - i] * xw[..., i:]).sum(-1)
-                      for i in range(ORDER + 1)], dim=-1)   # (S, C, 25)
+                      for i in range(ORDER + 1)], dim=-1).float()  # (S, C, 25)
     ac0 = ac[..., 0] * 1.0001 + 1e-9 * n
     ac = torch.cat([ac0[..., None], ac[..., 1:] * consts["lagw"]], dim=-1)
+    ac64 = ac.double()
 
     a = torch.zeros_like(ac[..., :ORDER])
     err = ac[..., 0]
     for i in range(ORDER):
-        # acc = ac[i+1] - sum_{j<i} a[j] * ac[i-j]
-        acc = ac[..., i + 1] - (a[..., :i] * ac[..., 1:i + 1].flip(-1)).sum(-1)
+        # acc = ac[i+1] - sum_{j<i} a[j] * ac[i-j], the sum in float64
+        dot = (a[..., :i] * ac64[..., 1:i + 1].flip(-1)).sum(-1)
+        acc = (ac64[..., i + 1] - dot).float()
         k = torch.clamp(acc / torch.clamp(err, min=1e-12), -0.98, 0.98)
         # a[:i] -= k * a[i-1::-1] ; a[i] = k
         a2 = a.clone()
@@ -128,6 +136,24 @@ def _fir_residual(x, a):
         shifted = F.pad(x, (j + 1, 0))[..., :T]
         acc = acc - a[..., j:j + 1] * shifted
     return acc
+
+
+def _lpc_synthesis(e_ext, tail, lpc):
+    """(S, C, n) excitation through the LPC synthesis filter, with the
+    ORDER samples `tail` of decoder history as initial conditions and the
+    decoder's saturation. buf holds [ORDER samples of history | n
+    outputs], oldest first. The float64 weights make each step's sum
+    float64; the float32 buf rounds it once, where it is written."""
+    S, C, n = e_ext.shape
+    buf = torch.empty((S, C, ORDER + n), dtype=torch.float32,
+                      device=e_ext.device)
+    buf[..., :ORDER] = tail
+    lpc_rev = lpc.flip(-1).double()  # weights, window oldest..newest
+    with record_function("plc.lpc_synthesis"):
+        for t in range(n):
+            v = e_ext[..., t] + (buf[..., t:t + ORDER] * lpc_rev).sum(-1)
+            buf[..., ORDER + t] = torch.clamp(v, -65536.0, 65536.0)
+    return buf[..., ORDER:]
 
 
 def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
@@ -155,10 +181,11 @@ def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
     ar = torch.arange(HIST, device=dev)
     m1 = (ar >= HIST - p[:, None])[:, None, :]
     m2 = ((ar >= HIST - 2 * p[:, None]) & (ar < HIST - p[:, None]))[:, None, :]
-    ee = exc * exc
+    exc64 = exc.double()
+    ee = exc64 * exc64
     zero = torch.zeros((), dtype=ee.dtype, device=dev)
-    e1 = torch.where(m1, ee, zero).sum(-1)
-    e2 = torch.where(m2, ee, zero).sum(-1)
+    e1 = torch.where(m1, ee, zero).sum(-1).float()
+    e2 = torch.where(m2, ee, zero).sum(-1).float()
     has2 = (2 * p <= HIST)[:, None]
     e2 = torch.where(has2, e2, e1)
     decay = torch.sqrt(torch.clamp(e1 / torch.clamp(e2, min=1e-9), max=1.0))
@@ -175,16 +202,7 @@ def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
         * periods[:, None, :].to(torch.float32))
     e_ext = e_src * atten
 
-    # LPC synthesis with decoder-history initial conditions + saturation;
-    # buf holds [ORDER samples of history | n_ext outputs], oldest first
-    buf = torch.empty((S, C, ORDER + n_ext), dtype=torch.float32, device=dev)
-    buf[..., :ORDER] = mem[:, :, DBS - ORDER:DBS]
-    lpc_rev = lpc.flip(-1)       # weights for the window oldest..newest
-    with record_function("plc.lpc_synthesis"):
-        for t in range(n_ext):
-            v = e_ext[..., t] + (buf[..., t:t + ORDER] * lpc_rev).sum(-1)
-            buf[..., ORDER + t] = torch.clamp(v, -65536.0, 65536.0)
-    ext = buf[..., ORDER:]
+    ext = _lpc_synthesis(e_ext, mem[:, :, DBS - ORDER:DBS], lpc)
 
     # comb-filter undo over the re-entry window (decode_mem is in the
     # post-postfilter domain; the TDAC raw tails are pre-postfilter)
@@ -207,7 +225,7 @@ def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
 
     i1, i2, g1, g2 = consts["fold"]
     folded = inb[..., i1] * g1 + inb[..., i2] * g2
-    freq = torch.matmul(folded, consts["F"].T)
+    freq = torch.matmul(folded.double(), consts["F"].T).float()
 
     new_plc = PlcState(
         loss_count=torch.where(lost, plc.loss_count + 1,

@@ -9,8 +9,10 @@ frame, IIR state, FIR tail), so it is ONE matrix product against a probed
 filter on basis vectors (`make_up48_plan`, copied as it is); at run time
 there are no scans and no gathers.
 
-The product runs in strict fp32 (TF32 is off, `_device.py`): the inputs
-are at int16 scale, where TF32's 10-bit mantissa would cost tens of units.
+The operator holds the reference's float32 values in float64 and the
+product accumulates in float64, rounded once to float32, so that a
+stream's output does not depend on its batch (`_device.py`); TF32, whose
+10-bit mantissa would cost tens of units at int16 scale, never enters.
 
 State (S, 6+8+delay) mirrors the host resampler state (s_iir, s_fir tail,
 delay_buf).
@@ -138,8 +140,7 @@ def make_up48_plan(in_len: int, in_khz: int, device) -> Up48Plan:
     The fractional-FIR gather matrix G is composed with the (linear) up2_HQ
     IIR chains by probing the sequential filter on L+14 basis vectors."""
     W, M, delay = up48_operator(in_len, in_khz)
-    return Up48Plan(torch.as_tensor(W, device=_device.as_device(device)), M,
-                    in_khz, delay)
+    return Up48Plan(_device.operator64(W, device), M, in_khz, delay)
 
 
 class Up48State(NamedTuple):
@@ -168,7 +169,7 @@ def up48_step(x, state: Up48State, plan: Up48Plan):
     d = plan.delay
     x_delayed = torch.cat([state.delay[:, :d], x[:, :L - d]], dim=1)
     inp = torch.cat([x_delayed, state.s_iir, state.s_fir], dim=1)
-    res = torch.matmul(inp, plan.wmat)
+    res = torch.matmul(inp.double(), plan.wmat).float()
     M = plan.n_out
     new_delay = torch.zeros_like(state.delay)
     new_delay[:, :d] = x[:, L - d:]

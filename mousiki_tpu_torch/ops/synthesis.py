@@ -1,7 +1,8 @@
 """Batched CELT synthesis in PyTorch: port of mousiki_tpu/ops/synthesis_jax.py.
 
 Per step, for S streams at once: denormalise (band-energy scale through a
-bin->band gather), long/short IMDCT as float32 matrix products, the TDAC
+bin->band gather), long/short IMDCT as matrix products (float32 operators
+accumulated in float64, rounded once: see _device.py), the TDAC
 overlap combine, the chunked comb postfilter, and the de-emphasis tail
 (IIR, 1/32768 scale and (S, C, N) -> (S, N, C) interleave: one CUDA
 kernel of ops/deemphasis.py on the card). Public layouts follow the JAX
@@ -31,8 +32,8 @@ CHUNK = COMB_MIN - 2
 
 
 class SynthesisConsts(NamedTuple):
-    m_long: torch.Tensor      # (n, n) IMDCT basis
-    m_short: torch.Tensor     # (120, 120)
+    m_long: torch.Tensor      # (n, n) IMDCT basis, float64 (f32 values)
+    m_short: torch.Tensor     # (120, 120), the same
     window: torch.Tensor      # (120,)
     bin_band: torch.Tensor    # (n,) int64
     e_means: torch.Tensor     # (22,)
@@ -49,8 +50,8 @@ def make_consts(n: int, device) -> SynthesisConsts:
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     return SynthesisConsts(
-        m_long=f32(imdct_matrix(n)),
-        m_short=f32(imdct_matrix(120)),
+        m_long=_device.operator64(imdct_matrix(n), dev),
+        m_short=_device.operator64(imdct_matrix(120), dev),
         window=f32(MODE.window),
         bin_band=torch.as_tensor(bin_band_map(MODE, M).astype(np.int64),
                                  device=dev),
@@ -105,9 +106,11 @@ class FrameDesc(NamedTuple):
 
 
 def denormalise(consts: SynthesisConsts, x, band_log_e, silence):
-    """freq[s,c,k] = x * 2^(bandLogE[band(k)] + eMeans[band(k)])."""
+    """freq[s,c,k] = x * 2^(bandLogE[band(k)] + eMeans[band(k)]), in
+    float64: torch's float32 exp2 on the CPU rounds the tail of a tensor
+    unlike its vectorised body, so its value would depend on the batch."""
     lg = band_log_e + consts.e_means[None, None, :]
-    g = torch.exp2(torch.clamp(lg, max=32.0))
+    g = torch.exp2(torch.clamp(lg, max=32.0).double())
     gk = torch.index_select(g, 2, consts.bin_band)
     freq = x * gk
     return torch.where(silence[:, None, None], torch.zeros_like(freq), freq)
@@ -115,14 +118,16 @@ def denormalise(consts: SynthesisConsts, x, band_log_e, silence):
 
 def imdct_blocks(consts: SynthesisConsts, freq, transient):
     """Raw IMDCT output (S, C, N) of the long (1 x N) or short (8 x 120)
-    block layout, selected per stream."""
+    block layout, selected per stream; float64 products, rounded once."""
     S, C, N = freq.shape
-    raw_long = torch.matmul(freq, consts.m_long.T)               # (S, C, N)
+    f64 = freq.double()
+    raw_long = torch.matmul(f64, consts.m_long.T)                # (S, C, N)
     B = N // 120
     # short blocks: block b coefficient k = freq[b + B*k]
-    fs = freq.reshape(S, C, 120, B).transpose(2, 3)     # (S, C, B, 120)
+    fs = f64.reshape(S, C, 120, B).transpose(2, 3)      # (S, C, B, 120)
     raw_short = torch.matmul(fs, consts.m_short.T).reshape(S, C, N)
-    return torch.where(transient[:, None, None], raw_short, raw_long)
+    return torch.where(transient[:, None, None], raw_short,
+                       raw_long).float()
 
 
 @lru_cache(maxsize=None)
@@ -182,6 +187,9 @@ def comb_filter_batched(consts, buf, pos, N, t0, t1, g0, g1, tap0, tap1):
     A Python loop over chunks of COMB_MIN-2 = 13 samples, the chunking of
     the reference fori_loop: the feedback lag is >= 13 (periods are
     clamped to >= 15), so each chunk reads only outputs of earlier chunks.
+    Each chunk's 10-tap sum stays float32: it runs over a middle axis of
+    fixed size, which torch reduces in one order whatever the number of
+    streams, on the CPU and the card (batch_stages.py compares it).
     Returns buf."""
     S, C, _ = buf.shape
     dev = buf.device
