@@ -19,9 +19,11 @@ thing if any module of mousiki_tpu is loaded):
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
-     Python-host CELT path's (phase 19), and (256, 2, 120), (7, 1, 960),
-     (3, 2, 240), and a shard's shapes on the mesh of phase 23 ((128, 2,
-     960) and (128, 1, 960) on one card); bar 1e-4 * max|pcm|. For
+     Python-host CELT path's (phase 19), (1024, 2, 960) and (8, 2, 960),
+     the bench's second batch and gate (phase 25), and (256, 2, 120),
+     (7, 1, 960), (3, 2, 240), and a shard's shapes on the mesh of
+     phase 23 ((128, 2, 960) and (128, 1, 960) on one card); bar
+     1e-4 * max|pcm|. For
      each: the kernel's device time (torch.profiler; input in L2 as on the
      main path, and L2 evicted by a 128 MB read before each launch), its
      HBM bound and bound share, the plain
@@ -165,11 +167,21 @@ thing if any module of mousiki_tpu is loaded):
  24. libopus: whether the host has it (hostcodec/testing/oracle.py) and
      its version; where it has, the plan pipeline on the three stereo
      fixtures within 2e-4 of libopus's float decode; where it has not,
-     the line libopus=unavailable (a fact about the host, not a failure).
+     the line libopus=unavailable (a fact about the host, not a failure);
+ 25. the bench (mousiki_tpu_torch/bench.py, bench_torch.py's): its quick
+     run at S = 256 with the second batch at S = 1024, on the committed
+     libopus fixture (testdata/bench_fixture.npz); its JSON line printed,
+     the quality gate passed on the synthetic signal and the corpus
+     (first 16 frames each), every value finite; then the kernel launched
+     once a step in an e2e window at S = 256 and at S = 1024, and once a
+     frame in the gate's scanned decode at (8, 2, 960) (counts reset just
+     before each).
 
 Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
-each path's shape, every number of a row measured at that shape); the last
+each path's shape, every number of a row measured at that shape, the
+device time with the input in L2 as the path leaves it and with L2
+evicted); the last
 line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
@@ -197,7 +209,7 @@ from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
 from mousiki_tpu_torch._device import require_cuda
 from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import deemphasis as deemph
-from mousiki_tpu_torch import dred
+from mousiki_tpu_torch import bench, dred
 from mousiki_tpu_torch.hostcodec.bitstream.repacketizer import \
     opus_packet_unpad
 from mousiki_tpu_torch.hostcodec.opus_encoder import OpusEncoder
@@ -225,11 +237,13 @@ S_MAIN, S_WIDE = 256, 1024      # streams of the main paths / the wide timing
 S_PYHOST = 32                   # streams of the Python-host CELT path
 LOCKSTEP_FRAMES = 2             # frames a width of the lockstep phase
 # (S, C, N) of the kernel's input on the CELT and on the mixed main path,
-# and on the Python-host CELT path
+# on the Python-host CELT path, and on the bench's second batch and gate
 CELT_SHAPE, MIXED_SHAPE = (S_MAIN, 2, FRAME), (S_MAIN, 1, FRAME)
 PYHOST_SHAPE = (S_PYHOST, 2, FRAME)
-KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, PYHOST_SHAPE, (256, 2, 120),
-                 (7, 1, 960), (3, 2, 240))
+WIDE_SHAPE, GATE_SHAPE = (S_WIDE, 2, FRAME), (bench.GATE_STREAMS, 2, FRAME)
+KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, PYHOST_SHAPE, WIDE_SHAPE,
+                 GATE_SHAPE, (256, 2, 120), (7, 1, 960), (3, 2, 240))
+BENCH_WINDOW = 4                # steps of phase 25's counted e2e windows
 TIMING_REPEATS = 3
 TIMING_STEPS = 8                # timed steps a run of phase 14
 ENCODE_BITRATE = 128000
@@ -1735,6 +1749,59 @@ def phase_libopus(dev, streams):
         worst_abs_err_vs_libopus=worst, bar=GOLDEN_TOL)
 
 
+def _not_finite(line: dict) -> list:
+    """The bench line's values that should be finite numbers and are not
+    (strings and the per-window lists aside)."""
+    return [(key, value) for key, value in list(line.items()) + [
+                (f"quality.{k}", v) for k, v in line["quality"].items()]
+            if not isinstance(value, (str, dict, list))
+            and not (isinstance(value, (int, float))
+                     and np.isfinite(value))]
+
+
+def phase_bench(dev):
+    """The bench's quick run, then its paths' kernel launches counted."""
+    t0 = time.perf_counter()
+    line = bench.run(S_MAIN, dev, quick=True, s_big=S_WIDE)
+    seconds = round(time.perf_counter() - t0, 1)
+    print(json.dumps(line), flush=True)
+    check(line["quality_gate"] == "pass",
+          f"bench quality gate failed: {line['quality']}")
+    bad = _not_finite(line)
+    check(not bad, f"bench values not finite: {bad}")
+    check(line["device"] == torch.cuda.get_device_name(0)
+          and line["power_limit_w"] is not None,
+          f"bench device {line['device']!r}, {line['power_limit_w']} W")
+    fx = bench.load_fixture()
+    pays = fx["synthetic"]["payloads"]
+    launches = {}
+    for S, path in ((S_MAIN, "bench_e2e"), (S_WIDE, "bench_e2e_s1024")):
+        pipe = CeltStreamPipeline(S, 2, use_plan=True, device=dev)
+        bench.e2e_window(pipe, pays, 2)
+        deemph.reset_launches()
+        bench.e2e_window(pipe, pays, BENCH_WINDOW)
+        launches[path] = deemph.deemphasis_launches
+        check(launches[path] == BENCH_WINDOW,
+              f"{path}: {launches[path]} deemphasis launches in "
+              f"{BENCH_WINDOW} steps: one a step expected")
+        del pipe
+    n_gate = bench.QUICK.gate_frames
+    deemph.reset_launches()
+    r, _ = bench._gate_one(pays[:n_gate], fx["synthetic"]["ref16k_quick"],
+                           dev)
+    launches["bench_gate"] = deemph.deemphasis_launches
+    check(launches["bench_gate"] == n_gate,
+          f"gate: {launches['bench_gate']} deemphasis launches in "
+          f"{n_gate} frames: one a frame expected")
+    check(r["ok"], f"gate decode failed opus_compare: {r}")
+    RESULTS["bench"] = line
+    say("bench_run", seconds=seconds, value=line["value"],
+        value_stream_20ms=line["value_stream_20ms"],
+        value_s1024=line["value_s1024"], quality_gate=line["quality_gate"],
+        **{f"{path}_launches": n for path, n in launches.items()})
+    return launches
+
+
 def _phase(name, fn, *args):
     """Run one phase and keep its wall seconds."""
     t = time.perf_counter()
@@ -1789,6 +1856,7 @@ def main() -> int:
     n_mesh_celt, n_mesh_mixed = _phase(
         "mesh", phase_mesh, dev, streams, mono, mesh, s_mesh, one_card)
     _phase("libopus", phase_libopus, dev, streams)
+    n_bench = _phase("bench", phase_bench, dev)
     # one row for each path's shape: the path's launches (counted from 0
     # just before it ran) beside what phase 3 measured at that shape
     kernels = {"kernels": [{
@@ -1798,6 +1866,9 @@ def main() -> int:
         "path": path, "shape": list(shape), "launches": launches,
         "max_abs_err": table[shape]["max_abs_err"],
         "ms": table[shape]["kernel_device_ms"],
+        # the input as the path leaves it (in L2) beats the HBM bound
+        # where it fits in L2 with its output, as at (1024, 2, 960)
+        "ms_l2_evicted": table[shape]["kernel_device_ms_l2_flushed"],
         "plain_ms": table[shape]["plain_device_ms"],
         "bound_ms": table[shape]["bound_ms"],
         "bound_by": table[shape]["bound_by"],
@@ -1810,7 +1881,10 @@ def main() -> int:
             ("celt_lockstep_mono", MIXED_SHAPE,
              n_lockstep["celt_lockstep_mono"]),
             ("celt_mesh", mesh_shapes[0], n_mesh_celt),
-            ("mixed_mesh", mesh_shapes[1], n_mesh_mixed))]}
+            ("mixed_mesh", mesh_shapes[1], n_mesh_mixed),
+            ("bench_e2e", CELT_SHAPE, n_bench["bench_e2e"]),
+            ("bench_e2e_s1024", WIDE_SHAPE, n_bench["bench_e2e_s1024"]),
+            ("bench_gate", GATE_SHAPE, n_bench["bench_gate"]))]}
     RESULTS["kernels"] = kernels
     say("run", seconds=round(time.perf_counter() - t_start, 1),
         **RESULTS["phase_seconds"])

@@ -17,6 +17,7 @@ of the JAX package's.
 from __future__ import annotations
 
 import ctypes as C
+import functools
 
 import numpy as np
 
@@ -424,6 +425,28 @@ class NativeCeltHostBatch:
         i = db[0] % self._plan_nbufs
         db[0] = i + 1
         return self._decode_plan_into(ring[i], payloads, frame_size)
+
+    def plan_batch_call(self, payloads: list, frame_size: int,
+                        n_threads: int = 1):
+        """A callable that runs one native plan batch decode of `payloads`
+        into the first arena set of `frame_size`, marshalled once here, so
+        that a call is the C batch call and nothing else: the native
+        stage's own cost, for timing. Each call advances the streams'
+        decoder states, as a decode does."""
+        db = self._plan_db.setdefault(frame_size, [0, []])
+        if not db[1]:
+            db[1].append(self._plan_slot(frame_size))
+        views, ptrs = db[1][0][3], db[1][0][4]
+        blob, offs, lens = self._marshal(payloads)
+        offs, lens = offs.copy(), lens.copy()
+        views["lost8"][:] = lens == 0
+        ip = C.POINTER(C.c_int32)
+        # a pointer from `data_as` keeps its array alive
+        return functools.partial(
+            self._lib.celt_host_decode_plan_batch, self._states, blob,
+            offs.ctypes.data_as(ip), lens.ctypes.data_as(ip), self.S,
+            frame_size, self.channels, self.start, self.end,
+            1 if self.disable_inv else 0, ptrs, n_threads)
 
     def decode_plan_chunk(self, frames: list, frame_size: int):
         """Decode K frame batches straight into ONE contiguous

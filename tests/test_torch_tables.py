@@ -452,8 +452,9 @@ names = ["mousiki_tpu_torch"]
 for info in pkgutil.walk_packages(mousiki_tpu_torch.__path__,
                                   "mousiki_tpu_torch."):
     names.append(info.name)
-# the smoke run and its fixture loader import nothing of JAX either
-for name in names + ["golden_streams", "chip_smoke"]:
+# the smoke run, its fixture loader and the bench import nothing of JAX
+# either
+for name in names + ["golden_streams", "chip_smoke", "bench_torch"]:
     importlib.import_module(name)
 for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.ops.encode_front",
@@ -495,7 +496,8 @@ for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.hostcodec.celt.plan",
              "mousiki_tpu_torch.hostcodec.celt.plan_pack",
              "mousiki_tpu_torch.hostcodec.testing.oracle",
-             "mousiki_tpu_torch.parallel.streaming"):
+             "mousiki_tpu_torch.parallel.streaming",
+             "mousiki_tpu_torch.bench"):
     assert name in sys.modules, name
 # every top-level name of the reference resolves without it
 for name in mousiki_tpu_torch.__all__:
@@ -506,8 +508,9 @@ print("imported", len(names))
 
 
 def test_port_imports_without_jax():
-    """The port, golden_streams and chip_smoke import with jax and every
-    module of the JAX package (mousiki_tpu, mousiki_tpu.*) refused."""
+    """The port, golden_streams, chip_smoke and bench_torch import with
+    jax and every module of the JAX package (mousiki_tpu, mousiki_tpu.*)
+    refused."""
     proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
