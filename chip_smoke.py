@@ -20,7 +20,8 @@ thing if any module of mousiki_tpu is loaded):
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
      Python-host CELT path's (phase 19), (1024, 2, 960) and (8, 2, 960),
-     the bench's second batch and gate (phase 25), and (256, 2, 120),
+     the bench's second batch and gate (phase 25), (3, 2, 960), the
+     encode quality chain's decode (phase 13b), and (256, 2, 120),
      (7, 1, 960), (3, 2, 240), and a shard's shapes on the mesh of
      phase 23 ((128, 2, 960) and (128, 1, 960) on one card); bar
      1e-4 * max|pcm|. For
@@ -84,6 +85,21 @@ thing if any module of mousiki_tpu is loaded):
  13. SILK encode: SilkEncodePipeline(8) for 4 frames at 24 kbit/s on the
      golden mono PCM; stream 0's packets equal a one-stream pipeline's,
      and every packet decodes in OpusStreamPipeline to finite PCM;
+ 13b. encode quality (mousiki_tpu_torch/quality.py, the chain of
+     tools/torch_celt_quality_report.py and torch_silk_quality_report.py,
+     against testdata/encode_quality_fixture.npz: the CPU port's packets
+     and libopus's side, made where libopus is): testdata/corpus.wav
+     (200 frames) encoded on the card at 64, 96 and 128 kbit/s, decoded
+     on the card by CeltStreamPipeline(3, use_plan=True) in one scanned
+     dispatch (one stream a rate; the kernel launched once a frame, counts
+     reset just before) and scored with opus_compare against the corpus,
+     err4 and err16 within 0.005 of the fixture's libopus-decoded score
+     of the CPU port's packets; the 24 and 32 kbit/s SILK lanes of one
+     SilkEncodePipeline over the first 16 frames of the speech corpus,
+     every lane held by the device quantizer, decoded on the card by
+     OpusStreamPipeline(2, channels=1), each lane's SNR to the input at
+     least the fixture's (libopus's decode of the CPU port's packets)
+     less 3 dB; the share of packets equal to the fixture's printed;
  14. timing: steady-state ms/step and aggregate realtime-x through
      decode_stream: the CELT decoder at S = 256 (default, overlap_host,
      chunk=4) and S = 1024, the mixed decoder at S = 256 and S = 1024,
@@ -209,7 +225,7 @@ from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
 from mousiki_tpu_torch._device import require_cuda
 from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import deemphasis as deemph
-from mousiki_tpu_torch import bench, dred
+from mousiki_tpu_torch import bench, dred, quality
 from mousiki_tpu_torch.hostcodec.bitstream.repacketizer import \
     opus_packet_unpad
 from mousiki_tpu_torch.hostcodec.opus_encoder import OpusEncoder
@@ -241,8 +257,11 @@ LOCKSTEP_FRAMES = 2             # frames a width of the lockstep phase
 CELT_SHAPE, MIXED_SHAPE = (S_MAIN, 2, FRAME), (S_MAIN, 1, FRAME)
 PYHOST_SHAPE = (S_PYHOST, 2, FRAME)
 WIDE_SHAPE, GATE_SHAPE = (S_WIDE, 2, FRAME), (bench.GATE_STREAMS, 2, FRAME)
+# and on the encode quality chain's decode, one stream a CELT rate
+QUALITY_SHAPE = (len(quality.CELT_RATES), 2, FRAME)
 KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, PYHOST_SHAPE, WIDE_SHAPE,
-                 GATE_SHAPE, (256, 2, 120), (7, 1, 960), (3, 2, 240))
+                 GATE_SHAPE, QUALITY_SHAPE, (256, 2, 120), (7, 1, 960),
+                 (3, 2, 240))
 BENCH_WINDOW = 4                # steps of phase 25's counted e2e windows
 TIMING_REPEATS = 3
 TIMING_STEPS = 8                # timed steps a run of phase 14
@@ -250,6 +269,10 @@ ENCODE_BITRATE = 128000
 # the card's CELT encode -> decode round trip may fall this far (dB) under
 # the same round trip through the port on the CPU, made in the same run
 ENCODE_SNR_MARGIN_DB = 3.0
+# the card's CELT quality chain (encode and decode on the card) against
+# the CPU port's packets decoded by libopus: err4 and err16 apart at most
+# (the port's decoder is within 2e-4 of libopus's PCM)
+QUALITY_TOL = 0.005
 # a stream's PCM against the same stream in another batch (the mesh's
 # shards, a wider batch, smaller batches): the reference's bar
 # (tests/test_sharded_plan.py), on every lane, lost or received
@@ -800,29 +823,6 @@ def phase_encode_front(dev, streams):
         integer_outputs="equal")
 
 
-def _downmix_16k(x48):
-    """48 kHz (n, channels) -> 16 kHz mono, through a windowed-sinc
-    low-pass (the encode tests' band-limited comparison)."""
-    taps = 96
-    t = np.arange(-taps, taps + 1, dtype=np.float64)
-    h = np.sinc(t / 3.0) / 3.0 * np.hanning(2 * taps + 1)
-    return np.convolve(np.asarray(x48, np.float64).mean(axis=1), h,
-                       mode="same")[::3]
-
-
-def _snr_db(ref48, got48, skip=960):
-    """SNR of got against ref after the downmix, at the best delay, past
-    the first frame."""
-    a, b = _downmix_16k(ref48[skip:]), _downmix_16k(got48[skip:])
-    best = -1e9
-    for lag in range(0, 120):
-        bb = b[lag:]
-        aa = a[:len(bb)]
-        best = max(best, 10 * np.log10(
-            (aa ** 2).mean() / (((aa - bb) ** 2).mean() + 1e-20)))
-    return float(best)
-
-
 def _encode_round_trip(device, streams, S, chunk=None):
     """Encode the 12 golden frames (step(), or encode_stream() in chunks),
     decode the packets with the port's CELT decoder on the same device.
@@ -866,12 +866,12 @@ def phase_encode_celt(dev, streams):
         frames, decoded = _encode_round_trip(dev, streams, S, chunk)
         cpu_frames, cpu_decoded = _encode_round_trip("cpu", streams, K, chunk)
         check(bool(np.isfinite(decoded).all()), "non-finite decoded pcm")
-        cpu_snr = {g.name: _snr_db(g.pcm, cpu_decoded[s])
+        cpu_snr = {g.name: quality.snr_db(g.pcm, cpu_decoded[s])
                    for s, g in enumerate(streams)}
         snr = {}
         for s in range(S):
             g = streams[s % K]
-            val = _snr_db(g.pcm, decoded[s])
+            val = quality.snr_db(g.pcm, decoded[s])
             bar = cpu_snr[g.name] - ENCODE_SNR_MARGIN_DB
             check(val >= bar, f"encode {mode}: stream {s} ({g.name}) "
                   f"{val:.2f} dB under its bar {bar:.2f}")
@@ -1063,6 +1063,68 @@ def phase_encode_silk(dev, mono):
         solo_quantizer_calls=solo._ex.dispatches,
         packet_bytes_last_frame=sizes[-1],
         seconds=round(time.perf_counter() - t0, 2))
+
+
+def phase_encode_quality(dev, card):
+    """The encoders' quality chain on the card against the fixture made by
+    the CPU port and libopus (mousiki_tpu_torch/quality.py). Returns the
+    kernel's launches in the CELT decode."""
+    fx = quality.load_fixture()
+    t0 = time.perf_counter()
+    celt = [quality.encode_celt_corpus(rate, device=dev)
+            for rate in quality.CELT_RATES]
+    t_encode = time.perf_counter() - t0
+    corpus = quality.load_corpus()
+    ref16 = quality.downmix_16k(corpus[: len(corpus) // FRAME * FRAME])
+    t0 = time.perf_counter()
+    deemph.reset_launches()
+    scores = quality.score(ref16, celt, 2,
+                           partial(quality.decode_celt_port, device=dev))
+    launches = deemph.deemphasis_launches
+    t_decode = time.perf_counter() - t0
+    celt_rows = []
+    for k, rate in enumerate(quality.CELT_RATES):
+        got, want = scores[k], fx["celt_scores"][k]
+        for key in ("err4", "err16"):
+            check(abs(got[key] - want[key]) <= QUALITY_TOL,
+                  f"encode quality {rate} bit/s: {key} {got[key]:.4f} on "
+                  f"the card against {want[key]:.4f} (bar {QUALITY_TOL})")
+        celt_rows.append(dict(rate=rate, card=got, fixture=want,
+                              equal_to_fixture=quality.equal_share(
+                                  celt[k], fx["celt_packets"][k])))
+    n = quality.FIXTURE_SILK_FRAMES
+    t0 = time.perf_counter()
+    packets, calls = quality.encode_silk_cases(quality.SILK_WIDEBAND,
+                                               device=dev, n_frames=n)
+    t_silk = time.perf_counter() - t0
+    check(all(c > 0 for c in calls),
+          f"device quantizer calls by lane {calls}: every lane expected")
+    x = quality.speech_frames()[: n * FRAME, None]
+    silk_rows = []
+    for k, pcm in enumerate(quality.decode_opus_port(packets, 1,
+                                                     device=dev)):
+        check(pcm.shape == x.shape and bool(np.isfinite(pcm).all()),
+              f"SILK lane {k} decodes to {pcm.shape}")
+        snr = quality.snr_db(x, pcm)
+        want = quality.snr_db(x, fx["silk_libopus_pcm"][k])
+        rate = quality.SILK_WIDEBAND[k][0]
+        check(snr >= want - ENCODE_SNR_MARGIN_DB,
+              f"encode quality SILK {rate} bit/s: {snr:.2f} dB on the card "
+              f"under {want:.2f} - {ENCODE_SNR_MARGIN_DB}")
+        silk_rows.append(dict(rate=rate, device_calls=calls[k], snr_db=snr,
+                              fixture_snr_db=want,
+                              equal_to_fixture=quality.equal_share(
+                                  packets[k], fx["silk_packets"][k])))
+    frames = len(celt[0])
+    say("encode_quality", card=card, celt=celt_rows, celt_tol=QUALITY_TOL,
+        silk=silk_rows, silk_frames=n, silk_margin_db=ENCODE_SNR_MARGIN_DB,
+        deemphasis_launches=launches, celt_frames=frames,
+        celt_encode_seconds=round(t_encode, 1),
+        celt_decode_score_seconds=round(t_decode, 1),
+        silk_encode_seconds=round(t_silk, 1))
+    check(launches == frames, f"encode quality decode: {launches} "
+          f"deemphasis launches in {frames} frames: one a frame expected")
+    return launches
 
 
 def phase_encode_timing(dev, streams, nsq_batches):
@@ -1843,6 +1905,7 @@ def main() -> int:
     _phase("encode_celt", phase_encode_celt, dev, streams)
     nsq_batches = _phase("silk_nsq", phase_silk_nsq, dev)
     _phase("encode_silk", phase_encode_silk, dev, mono)
+    n_quality = _phase("encode_quality", phase_encode_quality, dev, card)
     _phase("timing", phase_timing, dev, streams, mono)
     _phase("encode_timing", phase_encode_timing, dev, streams, nsq_batches)
     _phase("neural_conceal", phase_neural_conceal, dev)
@@ -1884,7 +1947,8 @@ def main() -> int:
             ("mixed_mesh", mesh_shapes[1], n_mesh_mixed),
             ("bench_e2e", CELT_SHAPE, n_bench["bench_e2e"]),
             ("bench_e2e_s1024", WIDE_SHAPE, n_bench["bench_e2e_s1024"]),
-            ("bench_gate", GATE_SHAPE, n_bench["bench_gate"]))]}
+            ("bench_gate", GATE_SHAPE, n_bench["bench_gate"]),
+            ("encode_quality", QUALITY_SHAPE, n_quality))]}
     RESULTS["kernels"] = kernels
     say("run", seconds=round(time.perf_counter() - t_start, 1),
         **RESULTS["phase_seconds"])

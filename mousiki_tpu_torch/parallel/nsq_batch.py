@@ -58,6 +58,10 @@ class NsqBatchExecutor:
         self.use_del_dec = use_del_dec
         self.device = _device.as_device(device)
         self.dispatches = 0      # device quantizer calls so far
+        # device quantizer calls that held each task's lane (task i of
+        # every `run`), so far
+        self.lane_dispatches = [0] * n_slots
+        self._task = threading.local()
         self._cv = threading.Condition()
         self._running = 0
         self._waiting = []       # parked requests
@@ -70,13 +74,18 @@ class NsqBatchExecutor:
                 or ctl.ar.shape[1] > _ORDER):
             if self.use_del_dec:
                 from ..hostcodec.silk.nsq_del_dec import nsq_del_dec_best
+                # the encoder's own warping, 983 * fs_kHz in Q16, at the
+                # call's internal rate (ltp_mem_length is 20 ms of it):
+                # 16 kHz's at 8 or 12 kHz wrecks the shaping (err16 6.9
+                # against 0.7 at 8 kbit/s, QUALITY_SILK_TORCH.md)
+                fs_khz = kw["ltp_mem_length"] // 20
                 return nsq_del_dec_best(x, st_nsq, ctl, **kw, n_states=4,
-                                        warping=_WARPING)
+                                        warping=983 * fs_khz / 65536.0)
             from ..hostcodec.silk.noise_shape import nsq_shaped
             return nsq_shaped(x, st_nsq, ctl, **kw)
         req = {"x": np.asarray(x, np.float64), "st": st_nsq, "ctl": ctl,
                "kw": kw, "event": threading.Event(), "pulses": None,
-               "seed": None}
+               "seed": None, "task": self._task.index}
         with self._cv:
             self._waiting.append(req)
             self._running -= 1
@@ -175,6 +184,7 @@ class NsqBatchExecutor:
                 seed_used = seed_used.cpu().numpy()
             new = type(new_state)(*(v.cpu().numpy() for v in new_state))
         for i, r in enumerate(reqs):
+            self.lane_dispatches[r["task"]] += 1
             stn = r["st"]
             stn.xq[:_M] = new.xq[i]
             stn.xq[_M:] = 0.0
@@ -201,8 +211,10 @@ class NsqBatchExecutor:
         Quantizer calls made by the tasks (through `hook`) are batched."""
         results = [None] * len(tasks)
         errors = []
+        self.lane_dispatches += [0] * (len(tasks) - len(self.lane_dispatches))
 
         def work(i, fn):
+            self._task.index = i
             try:
                 results[i] = fn()
             except Exception as e:      # surface in the caller

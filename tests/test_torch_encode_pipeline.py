@@ -1,8 +1,8 @@
 """mousiki_tpu_torch.pipeline.CeltEncodePipeline: its packets decode in
 libopus with the quality the JAX pipeline's are held to (the cases of
 tests/test_encode_pipeline.py), step_chunk and encode_stream yield one
-list of S packets a frame, and the share of packets byte-equal to the JAX
-pipeline's is printed."""
+list of S packets a frame, and most packets are byte-equal to the JAX
+pipeline's."""
 
 import os
 import sys
@@ -124,11 +124,17 @@ def test_encode_stream_and_step_chunk_yield_every_frame():
     assert len(list(pipe.encode_stream(iter(parts)))) == 6
 
 
+# share of packets byte-equal to the JAX pipeline's (measured 24 of 24 on
+# the CPU; tests/test_torch_quality.py holds the same bar on the corpus)
+JAX_EQUAL_BAR = 0.9
+
+
 def test_packets_against_the_jax_pipeline():
-    """The same PCM through the JAX pipeline and the port: the share of
-    byte-equal packets is printed (the fronts agree to float tolerance, and
-    the symbol encoders are the same code, so most packets are equal); the
-    packet sizes are equal."""
+    """The same PCM through the JAX pipeline and the port: at least
+    JAX_EQUAL_BAR of the packets are byte-equal (the fronts agree to float
+    tolerance, and the symbol encoders are the same code, so a packet
+    differs only where a near-tie in a decision flips); the packet sizes
+    are equal."""
     pytest.importorskip("jax")
     from mousiki_tpu.pipeline import CeltEncodePipeline as JaxPipeline
     S, n_frames = 3, 8
@@ -145,6 +151,7 @@ def test_packets_against_the_jax_pipeline():
         equal += sum(a == b for a, b in zip(got, want))
         total += S
     print(f"packets byte-equal to the JAX pipeline's: {equal}/{total}")
+    assert equal >= JAX_EQUAL_BAR * total
     assert ours.nbytes == theirs.nbytes == 320
 
 

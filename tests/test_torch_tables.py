@@ -436,7 +436,7 @@ def test_parse_packet_equals_original():
 
 
 _BLOCK_JAX = r"""
-import importlib, pkgutil, sys
+import importlib, pkgutil, runpy, sys
 
 _BLOCKED = ("jax", "jaxlib", "mousiki_tpu")
 
@@ -456,6 +456,11 @@ for info in pkgutil.walk_packages(mousiki_tpu_torch.__path__,
 # either
 for name in names + ["golden_streams", "chip_smoke", "bench_torch"]:
     importlib.import_module(name)
+# the quality twins and their fixture's generator import the JAX package
+# only inside --reference
+for tool in ("torch_celt_quality_report", "torch_silk_quality_report",
+             "gen_torch_quality_fixture"):
+    runpy.run_path(f"tools/{tool}.py")
 for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.ops.encode_front",
              "mousiki_tpu_torch.ops.silk_nsq",
@@ -497,7 +502,8 @@ for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.hostcodec.celt.plan_pack",
              "mousiki_tpu_torch.hostcodec.testing.oracle",
              "mousiki_tpu_torch.parallel.streaming",
-             "mousiki_tpu_torch.bench"):
+             "mousiki_tpu_torch.bench",
+             "mousiki_tpu_torch.quality"):
     assert name in sys.modules, name
 # every top-level name of the reference resolves without it
 for name in mousiki_tpu_torch.__all__:
@@ -508,9 +514,9 @@ print("imported", len(names))
 
 
 def test_port_imports_without_jax():
-    """The port, golden_streams, chip_smoke and bench_torch import with
-    jax and every module of the JAX package (mousiki_tpu, mousiki_tpu.*)
-    refused."""
+    """The port, golden_streams, chip_smoke, bench_torch and the quality
+    tools import with jax and every module of the JAX package
+    (mousiki_tpu, mousiki_tpu.*) refused."""
     proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
