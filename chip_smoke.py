@@ -192,6 +192,27 @@ thing if any module of mousiki_tpu is loaded):
      once a step in an e2e window at S = 256 and at S = 1024, and once a
      frame in the gate's scanned decode at (8, 2, 960) (counts reset just
      before each).
+ 26. entry points: the twins of the JAX repo's examples and tools
+     (examples/torch_*.py, tools/torch_*.py), each through its function
+     on the card: batch decode (CeltStreamPipeline(8), the reference's
+     non-plan default, 25 frames; the kernel launched once a step, counts
+     reset just before; PCM finite and within 2e-4 of
+     CeltStreamPipeline(8, use_plan=True) on the same payloads); DRED
+     recovery (25 frames, 12-13 lost, every network on the card; the gap
+     recovered through DRED; every PitchDNN period within 1e-3 of the
+     CPU's; PCM within 1e-4 of the CPU decode of the same packets with
+     the same weights, where a period flip (excused only within 1e-3 of
+     an integer) leaves the bar on the frames before the loss; the share
+     of packets equal to the twin's CPU run printed); once each, as smoke
+     runs of host code: the single-stream chain (write an .opus, decode
+     it, seek in it; the trivial round trip), codec_bench (packets,
+     encode, decode; 10 frames, --warmup 0 --measure 1) and
+     opus_packet_tool, their lines and files checked for form, and
+     build_dnn_blob on a synthetic C source; the
+     lockstep probe at S = 256, one step and one trial of one step (the
+     kernel launched once a step, counts reset just before), every lane
+     ok, the first step's PCM within 2e-4 of CeltStreamPipeline(256,
+     use_plan=True) on the same packets; the seconds of each part.
 
 Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
@@ -207,11 +228,14 @@ the profiled steps to DIR/profile_*.txt.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -242,6 +266,7 @@ from mousiki_tpu_torch.pipeline import (SERVING_PROFILE, CeltEncodePipeline,
                                         OpusStreamPipeline,
                                         SilkEncodePipeline,
                                         SilkStreamPipeline, set_plan_profile)
+from mousiki_tpu_torch.repo_files import load_script
 
 FRAME = 960
 GOLDEN_TOL = 2e-4
@@ -259,6 +284,10 @@ PYHOST_SHAPE = (S_PYHOST, 2, FRAME)
 WIDE_SHAPE, GATE_SHAPE = (S_WIDE, 2, FRAME), (bench.GATE_STREAMS, 2, FRAME)
 # and on the encode quality chain's decode, one stream a CELT rate
 QUALITY_SHAPE = (len(quality.CELT_RATES), 2, FRAME)
+S_EXAMPLE = 8                   # examples/torch_batch_decode.py's default
+# the batch decode example's shape; the same as the gate's, so phase 3
+# measures it there
+EXAMPLE_SHAPE = (S_EXAMPLE, 2, FRAME)
 KERNEL_SHAPES = (CELT_SHAPE, MIXED_SHAPE, PYHOST_SHAPE, WIDE_SHAPE,
                  GATE_SHAPE, QUALITY_SHAPE, (256, 2, 120), (7, 1, 960),
                  (3, 2, 240))
@@ -1864,6 +1893,262 @@ def phase_bench(dev):
     return launches
 
 
+# ------------------------------------------------ the JAX repo's twins
+
+def _entry_batch_decode(dev):
+    """examples/torch_batch_decode.py at its defaults: S = 8, 25 frames,
+    the non-plan pipeline; against the plan pipeline."""
+    twin = load_script("examples/torch_batch_decode.py")
+    deemph.reset_launches()
+    pkts, out = twin.run(S_EXAMPLE, device=dev)
+    torch.cuda.synchronize()
+    launches = deemph.deemphasis_launches
+    check(launches == len(pkts) == twin.N_FRAMES,
+          f"batch decode: {launches} deemphasis launches in {len(pkts)} "
+          "steps: one a step expected")
+    got = torch.stack(out).cpu().numpy()
+    check(got.shape == (len(pkts), S_EXAMPLE, FRAME, 2),
+          f"batch decode pcm {got.shape}")
+    check(bool(np.isfinite(got).all()), "batch decode: non-finite pcm")
+    plan = CeltStreamPipeline(S_EXAMPLE, use_plan=True, device=dev)
+    want = np.stack([plan.step([p[1:]] * S_EXAMPLE).cpu().numpy()
+                     for p in pkts])
+    err = float(np.abs(got - want).max())
+    check(err <= GOLDEN_TOL, f"batch decode: {err} from the plan pipeline")
+    say("entry_batch_decode", streams=S_EXAMPLE, frames=len(pkts),
+        packet_bytes=sum(map(len, pkts)), worst_abs_err_vs_plan=err,
+        bar=GOLDEN_TOL, peak=float(np.abs(got).max()),
+        deemphasis_launches=launches)
+    return launches
+
+
+@contextlib.contextmanager
+def _periods():
+    """The float pitch period of every PitchDNN call in the block, by the
+    type of device it ran on."""
+    seen = {"cuda": [], "cpu": []}
+    inner = deep_plc.compute_pitchdnn
+
+    def recorded(model, state, features):
+        period, state = inner(model, state, features)
+        seen[model.device.type].append(float(period[0]))
+        return period, state
+
+    deep_plc.compute_pitchdnn = recorded
+    try:
+        yield seen
+    finally:
+        deep_plc.compute_pitchdnn = inner
+
+
+def _entry_dred(dev):
+    """examples/torch_dred_loss_recovery.py on the card against its decode
+    loop on the CPU over the same packets, with the same weights."""
+    from mousiki_tpu_torch import OpusDecoder
+    twin = load_script("examples/torch_dred_loss_recovery.py")
+    with _periods() as periods:
+        t = time.perf_counter()
+        pkts, pcm, how = twin.run(device=dev)
+        card_s = time.perf_counter() - t
+        cpu = twin.synthetic_models("cpu")
+        host_pkts, host_pcm, _ = twin.run(models=cpu, device="cpu")
+        periods["cpu"].clear()          # the CPU run's own packets aside
+        dec = OpusDecoder(twin.FS, 1)
+        dec.set_deep_plc(cpu["fargan"], cpu["pitch"])
+        dec.set_dred_models(cpu["dec"])
+        want, want_how = twin.recover(dec, pkts, set(twin.LOST))
+    check(how == want_how == {twin.LOST: "dred"},
+          f"DRED recovery: {how} on the card, {want_how} on the CPU")
+    check(pcm.shape == want.shape and bool(np.isfinite(pcm).all()),
+          f"DRED recovery pcm {pcm.shape}")
+    card_p, cpu_p = periods["cuda"], periods["cpu"]
+    check(len(card_p) == len(cpu_p) > 0,
+          f"PitchDNN ran {len(card_p)} times on the card, {len(cpu_p)} on "
+          "the CPU")
+    worst_period = max(abs(g - c) for g, c in zip(card_p, cpu_p))
+    check(worst_period <= PERIOD_TOL,
+          f"DRED recovery: PitchDNN periods {worst_period} from the CPU's")
+    flips = [dict(card=g, cpu=c, cpu_distance_from_integer=abs(c - round(c)))
+             for g, c in zip(card_p, cpu_p) if int(g) != int(c)]
+    for flip in flips:
+        print(f"[entry_dred] period flip {flip}", flush=True)
+        check(flip["cpu_distance_from_integer"] < PERIOD_TOL,
+              f"period flip far from an integer: {flip}")
+    # before the first lost frame no network shapes the PCM, so a flip
+    # excuses nothing there
+    head = twin.LOST[0] * FRAME
+    err_head = float(np.abs(pcm[:head] - want[:head]).max())
+    check(err_head <= NEURAL_PCM_TOL, f"DRED recovery: PCM {err_head} from "
+          "the CPU decode before the loss")
+    err = float(np.abs(pcm - want).max())
+    if not flips:
+        check(err <= NEURAL_PCM_TOL, f"DRED recovery: PCM {err} from the "
+              "CPU decode of the same packets")
+    equal = sum(a == b for a, b in zip(pkts, host_pkts)) / len(pkts)
+    say("entry_dred", frames=len(pkts), lost=list(twin.LOST),
+        recovered="dred", worst_abs_err_vs_cpu=err,
+        worst_abs_err_vs_cpu_before_loss=err_head, bar=NEURAL_PCM_TOL,
+        worst_period_diff=worst_period, period_flips=len(flips),
+        pitch_calls=len(card_p),
+        packets_equal_to_cpu_run=equal,
+        worst_abs_err_vs_cpu_run=(float(np.abs(pcm - host_pcm).max())
+                                  if equal == 1 else None),
+        card_seconds=round(card_s, 2))
+
+
+def _entry_single_stream():
+    """The single-stream twins' chain, once, through their main functions
+    (host numpy, as in the references; tests/test_torch_examples.py holds
+    them to the JAX examples byte for byte): libopusenc writes an .opus
+    file, decode_ogg decodes it (its raw f32 stdout captured), the seeking
+    example reads a window from it and from a file of its own; then the
+    trivial round trip."""
+    twins = {n: load_script(f"examples/torch_{n}.py") for n in (
+        "libopusenc_example", "decode_ogg", "opusfile_seeking_example",
+        "trivial_example")}
+    text, raw = io.StringIO(), io.TextIOWrapper(io.BytesIO())
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(text):
+        path = os.path.join(tmp, "tone.opus")
+        twins["libopusenc_example"].main([path])
+        with contextlib.redirect_stdout(raw), \
+                contextlib.redirect_stderr(io.StringIO()):
+            twins["decode_ogg"].main([path])
+        raw.flush()
+        twins["opusfile_seeking_example"].main([path])
+        twins["opusfile_seeking_example"].main([])
+        twins["trivial_example"].main()
+        with open(path, "rb") as fh:
+            opus = fh.read()
+        lines = text.getvalue().replace(tmp, "TMP").splitlines()
+    f32 = raw.buffer.getvalue()
+    pcm = np.frombuffer(f32, "<f4")
+    check(len(pcm) > 0 and bool(np.isfinite(pcm).all())
+          and b"ARTIST=mousiki_tpu" in opus,
+          f"single-stream chain: {len(f32)} f32 bytes, {len(opus)} .opus "
+          "bytes")
+    check(len(lines) == 4 and lines[0] == "wrote TMP/tone.opus"
+          and all(line.startswith("pcm_total=") for line in lines[1:3])
+          and lines[3].startswith("encoded+decoded 48000 samples"),
+          f"single-stream chain printed {lines}")
+    return dict(opus_bytes=len(opus), f32_bytes=len(f32), lines=lines)
+
+
+def _entry_codec_tools():
+    """codec_bench (packets, encode, decode) and opus_packet_tool (encode,
+    decode), once, on 10 frames of stereo PCM (host numpy, as in the
+    references; tests/test_torch_tools.py holds their files to the JAX
+    tools' byte for byte)."""
+    bench_tool = load_script("tools/torch_codec_bench.py")
+    packet_tool = load_script("tools/torch_opus_packet_tool.py")
+    sig = oracle.make_test_signal(FRAME * 10, 2, seed=11)
+    once = ["--warmup", "0", "--measure", "1"]
+    text = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(text):
+        pcm, corpus = os.path.join(tmp, "in.s16"), os.path.join(tmp, "c.bin")
+        pkt, dec = os.path.join(tmp, "p.bin"), os.path.join(tmp, "d.s16")
+        with open(pcm, "wb") as fh:
+            fh.write(oracle.float_to_i16(sig).astype("<i2").tobytes())
+        bench_tool.main(["packets", "--input", pcm, "--output", corpus])
+        for cmd, inp in (("encode", pcm), ("decode", corpus)):
+            bench_tool.main([cmd, "--input", inp, "--format", "csv"] + once)
+        packet_tool.main(["encode", pcm, pkt])
+        packet_tool.main(["decode", pkt, dec])
+        files = []
+        for path in (corpus, pkt, dec):
+            with open(path, "rb") as fh:
+                files.append(fh.read())
+    lines = text.getvalue().splitlines()
+    check(lines[0].startswith("wrote 10 packets to ")
+          and lines[1] == lines[3] == ("median_ns_per_frame,p95_ns_per_frame,"
+                                       "median_packets_per_sec,"
+                                       "median_realtime_x")
+          and lines[5:] == ["encoded 10 packets", "decoded 10 packets"],
+          f"codec tools printed {lines}")
+    corpus, pkt, dec = files
+    check(len(dec) == 2 * 2 * FRAME * 10, f"decoded {len(dec)} bytes")
+    return dict(corpus_bytes=len(corpus), opuspkt1_bytes=len(pkt),
+                host_encode_csv=lines[2], host_decode_csv=lines[4])
+
+
+def _entry_dnn_blob():
+    """build_dnn_blob on a synthetic opus_data C source."""
+    from mousiki_tpu_torch.models.nnet import parse_weight_blob
+    tool = load_script("tools/torch_build_dnn_blob.py")
+    src = ("const float dec_dense1_bias[3] = {1.0f, -2.5f, 0.125f};\n"
+           "const opus_int8 dec_gru1_input_weights[4] = {1, -2, 127, -128};"
+           "\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.mkdir(os.path.join(tmp, "opus_data"))
+        with open(os.path.join(tmp, "opus_data", "fargan_data.c"), "w") as fh:
+            fh.write(src)
+        out = os.path.join(tmp, "blob.bin")
+        tool.main([os.path.join(tmp, "opus_data"), out])
+        with open(out, "rb") as fh:
+            blob = fh.read()
+    arrays = parse_weight_blob(blob)
+    check(sorted(arrays) == ["dec_dense1_bias", "dec_gru1_input_weights"]
+          and np.frombuffer(arrays["dec_dense1_bias"], "<f4").tolist()
+          == [1.0, -2.5, 0.125]
+          and np.frombuffer(arrays["dec_gru1_input_weights"],
+                            np.int8).tolist() == [1, -2, 127, -128],
+          f"build_dnn_blob: {arrays}")
+    return dict(blob_bytes=len(blob))
+
+
+def _entry_bench_lockstep(dev, card):
+    """tools/torch_bench_lockstep.py at S = 256: the first step and one
+    trial of one step; against the plan pipeline's first step."""
+    probe = load_script("tools/torch_bench_lockstep.py")
+    deemph.reset_launches()
+    res = probe.run(S_MAIN, device=dev, iters=1, trials=1)
+    torch.cuda.synchronize()
+    launches = deemph.deemphasis_launches
+    check(launches == 2, f"lockstep probe: {launches} deemphasis launches "
+          "in 2 steps: one a step expected")
+    n_ok = int(res["ok"].sum())
+    check(n_ok == S_MAIN, f"lockstep probe: {S_MAIN - n_ok} lanes not ok")
+    pays = probe.load_payloads()
+    plan = CeltStreamPipeline(S_MAIN, use_plan=True, device=dev)
+    want = plan.step([pays[s % len(pays)] for s in range(S_MAIN)])
+    got = res["pcm"]
+    check(got.shape == want.shape == (S_MAIN, FRAME, 2)
+          and bool(torch.isfinite(got).all()),
+          f"lockstep probe pcm {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    check(err <= GOLDEN_TOL,
+          f"lockstep probe: first step {err} from the plan pipeline")
+    say("entry_bench_lockstep", streams=S_MAIN, channels=probe.C,
+        first_step_s=res["first_s"], ms_per_step=res["step_ms"][0],
+        realtime_x=res["realtime_x"][0], worst_abs_err_vs_plan=err,
+        bar=GOLDEN_TOL, lanes_ok=n_ok, deemphasis_launches=launches,
+        card=repr(card))
+    return launches
+
+
+def phase_entry_points(dev, card):
+    """The twins of the JAX repo's examples and tools on the card."""
+    seconds, launches = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    launches["example_batch_decode"] = part(
+        "batch_decode", _entry_batch_decode, dev)
+    part("dred_loss_recovery", _entry_dred, dev)
+    say("entry_single_stream", **part("single_stream", _entry_single_stream))
+    say("entry_codec_tools", **part("codec_tools", _entry_codec_tools))
+    say("entry_build_dnn_blob", **part("build_dnn_blob", _entry_dnn_blob))
+    launches["tool_bench_lockstep"] = part(
+        "bench_lockstep", _entry_bench_lockstep, dev, card)
+    say("entry_points", **{f"{k}_seconds": v for k, v in seconds.items()})
+    return launches
+
+
 def _phase(name, fn, *args):
     """Run one phase and keep its wall seconds."""
     t = time.perf_counter()
@@ -1920,6 +2205,7 @@ def main() -> int:
         "mesh", phase_mesh, dev, streams, mono, mesh, s_mesh, one_card)
     _phase("libopus", phase_libopus, dev, streams)
     n_bench = _phase("bench", phase_bench, dev)
+    n_entry = _phase("entry_points", phase_entry_points, dev, card)
     # one row for each path's shape: the path's launches (counted from 0
     # just before it ran) beside what phase 3 measured at that shape
     kernels = {"kernels": [{
@@ -1948,7 +2234,11 @@ def main() -> int:
             ("bench_e2e", CELT_SHAPE, n_bench["bench_e2e"]),
             ("bench_e2e_s1024", WIDE_SHAPE, n_bench["bench_e2e_s1024"]),
             ("bench_gate", GATE_SHAPE, n_bench["bench_gate"]),
-            ("encode_quality", QUALITY_SHAPE, n_quality))]}
+            ("encode_quality", QUALITY_SHAPE, n_quality),
+            ("example_batch_decode", EXAMPLE_SHAPE,
+             n_entry["example_batch_decode"]),
+            ("tool_bench_lockstep", CELT_SHAPE,
+             n_entry["tool_bench_lockstep"]))]}
     RESULTS["kernels"] = kernels
     say("run", seconds=round(time.perf_counter() - t_start, 1),
         **RESULTS["phase_seconds"])

@@ -42,6 +42,12 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def from_cli(name: str) -> torch.device:
+    """The device a script's --device option names: "cpu", or "cuda" (the
+    scripts' default), which raises without a GPU."""
+    return torch.device("cpu") if name == "cpu" else require_cuda()
+
+
 def as_device(device) -> torch.device:
     """Normalise a device argument (str or torch.device). There is no
     default device: None raises, so a caller that forgets the argument

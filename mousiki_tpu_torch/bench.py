@@ -47,6 +47,7 @@ from .parallel.deep_recovery import BatchedDeepRecovery
 from .pipeline import (SERVING_PROFILE, CeltEncodePipeline,
                        CeltStreamPipeline, OpusStreamPipeline,
                        set_plan_profile)
+from .repo_files import pack_bytes, unpack_bytes
 
 N_FRAMES = 48
 NORTH_STAR = 5000.0
@@ -108,17 +109,6 @@ def load_corpus():
     return x.astype(np.float32) / 32768.0
 
 
-def _blob(packets: list) -> tuple[np.ndarray, np.ndarray]:
-    lens = np.asarray([len(p) for p in packets], np.int32)
-    return np.frombuffer(b"".join(packets), np.uint8), lens
-
-
-def _unblob(blob: np.ndarray, lens: np.ndarray) -> list:
-    ends = np.cumsum(lens)
-    raw = blob.tobytes()
-    return [raw[e - n:e] for e, n in zip(ends.tolist(), lens.tolist())]
-
-
 def save_fixture(path: str, fx: dict) -> None:
     """Write a fixture of load_fixture's form: each byte string list as
     one uint8 blob and its lengths, so the file loads without pickle."""
@@ -127,14 +117,14 @@ def save_fixture(path: str, fx: dict) -> None:
         sig = fx[name]
         for key in ("packets", "payloads"):
             arrays[f"{name}_{key}"], arrays[f"{name}_{key}_len"] = \
-                _blob(sig[key])
+                pack_bytes(sig[key])
         arrays[f"{name}_final_range"] = np.asarray(sig["final_range"],
                                                    np.uint32)
         arrays[f"{name}_ref16k"] = np.asarray(sig["ref16k"], np.float32)
         arrays[f"{name}_ref16k_quick"] = np.asarray(sig["ref16k_quick"],
                                                     np.float32)
     mixed = fx["mixed"]
-    arrays["mixed_packets"], arrays["mixed_packets_len"] = _blob(
+    arrays["mixed_packets"], arrays["mixed_packets_len"] = pack_bytes(
         [p for stream in mixed["packets"] for p in stream])
     arrays["mixed_final_range"] = np.asarray(mixed["final_range"],
                                              np.uint32)
@@ -158,14 +148,14 @@ def load_fixture(path: str = FIXTURE) -> dict:
         fx = {"libopus": str(z["libopus"])}
         for name in SIGNALS:
             fx[name] = {
-                "packets": _unblob(z[f"{name}_packets"],
+                "packets": unpack_bytes(z[f"{name}_packets"],
                                    z[f"{name}_packets_len"]),
-                "payloads": _unblob(z[f"{name}_payloads"],
+                "payloads": unpack_bytes(z[f"{name}_payloads"],
                                     z[f"{name}_payloads_len"]),
                 "final_range": z[f"{name}_final_range"],
                 "ref16k": z[f"{name}_ref16k"],
                 "ref16k_quick": z[f"{name}_ref16k_quick"]}
-        flat = _unblob(z["mixed_packets"], z["mixed_packets_len"])
+        flat = unpack_bytes(z["mixed_packets"], z["mixed_packets_len"])
         rng = z["mixed_final_range"]
         n = rng.shape[1]
         fx["mixed"] = {"packets": [flat[i * n:(i + 1) * n]
@@ -466,8 +456,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu runs everything on the CPU (tests only)")
     args = ap.parse_args(argv)
-    dev = (torch.device("cpu") if args.device == "cpu"
-           else _device.require_cuda())
-    result = run(args.streams, dev, args.quick, args.s_big)
+    result = run(args.streams, _device.from_cli(args.device), args.quick,
+                 args.s_big)
     print(json.dumps(result), flush=True)
     return 0 if result["quality_gate"] == "pass" else 1

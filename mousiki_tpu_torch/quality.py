@@ -32,6 +32,7 @@ from . import bench
 from .bitstream.packet import parse_packet
 from .pipeline import (CeltEncodePipeline, CeltStreamPipeline,
                        OpusStreamPipeline, SilkEncodePipeline)
+from .repo_files import pack_bytes, unpack_bytes
 
 FRAME = 960
 CELT_RATES = (64000, 96000, 128000)
@@ -301,7 +302,7 @@ def save_fixture(path: str, fx: dict) -> None:
     for key in ("celt", "silk"):
         flat = [p for stream in fx[f"{key}_packets"] for p in stream]
         arrays[f"{key}_packets"], arrays[f"{key}_packets_len"] = \
-            bench._blob(flat)
+            pack_bytes(flat)
     for key in ("celt_scores", "celt_libopus_scores"):
         arrays[key] = np.asarray([[s[k] for k in SCORE_KEYS]
                                   for s in fx[key]], np.float64)
@@ -328,7 +329,7 @@ def load_fixture(path: str = FIXTURE) -> dict:
         fx = {"libopus": str(z["libopus"])}
         for key, rates in (("celt", z["celt_rates"]),
                            ("silk", z["silk_rates"])):
-            flat = bench._unblob(z[f"{key}_packets"],
+            flat = unpack_bytes(z[f"{key}_packets"],
                                  z[f"{key}_packets_len"])
             n = len(flat) // len(rates)
             fx[f"{key}_packets"] = [flat[i * n:(i + 1) * n]

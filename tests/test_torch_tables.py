@@ -461,6 +461,16 @@ for name in names + ["golden_streams", "chip_smoke", "bench_torch"]:
 for tool in ("torch_celt_quality_report", "torch_silk_quality_report",
              "gen_torch_quality_fixture"):
     runpy.run_path(f"tools/{tool}.py")
+# the twins of the JAX repo's examples and tools, and the lockstep probe's
+# fixture generator, run by path as a module (not as __main__)
+twins = ["examples/torch_" + name + ".py" for name in (
+    "batch_decode", "dred_loss_recovery", "trivial_example",
+    "libopusenc_example", "decode_ogg", "opusfile_seeking_example")]
+twins += ["tools/" + name + ".py" for name in (
+    "torch_bench_lockstep", "torch_codec_bench", "torch_opus_packet_tool",
+    "torch_build_dnn_blob", "gen_torch_lockstep_fixture")]
+for path in twins:
+    assert "main" in runpy.run_path(path), path
 for name in ("mousiki_tpu_torch.hostcodec.opus_encoder",
              "mousiki_tpu_torch.ops.encode_front",
              "mousiki_tpu_torch.ops.silk_nsq",
@@ -514,9 +524,10 @@ print("imported", len(names))
 
 
 def test_port_imports_without_jax():
-    """The port, golden_streams, chip_smoke, bench_torch and the quality
-    tools import with jax and every module of the JAX package
-    (mousiki_tpu, mousiki_tpu.*) refused."""
+    """The port, golden_streams, chip_smoke, bench_torch, the quality
+    tools and the twins of the JAX repo's examples and tools import with
+    jax and every module of the JAX package (mousiki_tpu, mousiki_tpu.*)
+    refused."""
     proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
