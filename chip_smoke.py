@@ -14,8 +14,9 @@ thing if any module of mousiki_tpu is loaded):
 
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
   2. build, all at once: the three native host libraries (csrc/*.cpp,
-     g++: celt_host, silk_host, opus_host) and the fused de-emphasis
-     kernel (csrc/deemphasis.cu, nvcc), each with its build time;
+     g++: celt_host, silk_host, opus_host), the fused de-emphasis kernel
+     (csrc/deemphasis.cu, nvcc) and the two PVQ leaf kernels
+     (csrc/pvq_leaves.cu, nvcc), each source with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -31,11 +32,27 @@ thing if any module of mousiki_tpu is loaded):
      version's device time, both per-call CUDA-event times, and a copy
      floor (one out.copy_(x.transpose(1, 2)) moving the same bytes: a
      yardstick that does not compute the same function);
+ 3b. the PVQ leaf kernels (ops/pvq_leaves.py: cwrs_walk, the CWRS walk,
+     and pvq_leaf_values, normalisation and spreading rotation) against
+     their plain versions on the card: (a) the golden stereo leaves at
+     S = 256 under the serving profile, frames 0, 4 and 11, all three
+     tiers; (b) seeded synthetic leaves of every tier (every (n, k) with
+     V(n, k) < 2^32, idx at 0, V - 1 and between, every spread, b in
+     {1, 2, 4, 8} where it divides n, inactive leaves); iy exactly equal,
+     values within 1e-5; then, at every width a path runs the stage (S =
+     256, 1024, 8, 3 and a mesh shard's) and on the synthetic leaves,
+     each tier's device time of each kernel (torch.profiler), its bound
+     (the bytes the launch must move over HBM bandwidth, the U-table
+     entries its leaves read counted once, against integer or float
+     operations over the fp32 peak), the plain version's device time and
+     CUDA-event times of a call of both;
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
      launched once a step by the path itself (launch counts reset just
-     before);
+     before), each leaf kernel at most once a tier a step (on this and
+     every other plan path below: phases 7, 13b, 22, 23, 25 and 26's
+     lockstep probe);
   5. loss: 256 streams with ~10% seeded packet loss, the first 8 streams
      against the port run on the CPU (5e-3 on lost and just-recovered
      frames, 2e-4 elsewhere); the batch check: the same 256 streams as
@@ -109,9 +126,10 @@ thing if any module of mousiki_tpu is loaded):
      CELT encoder at
      S = 256 through step() and through encode_stream() with chunks of 8
      (24 frames after 8 of warm-up, three runs in turn); and profiled
-     steps (kernel launches, device busy time, host time by stage) of
-     both decoders, the device-SILK lane, one encode step and one frame
-     of each quantizer;
+     steps (kernel launches, the leaf kernels' among them, device busy
+     time, host time by stage) of both decoders, the device-SILK lane,
+     one encode step and one frame of each quantizer; the CELT step at
+     S = 256 within 5,400 launches and the mixed step within 3,000;
  15. neural concealment: BatchedDeepRecovery(64) with the port's seeded
      synthetic models, 5 conceal calls of 2 frames on bench.py's features
      (default_rng(0), (64, 2, 20) * 0.3), against the same class on the
@@ -165,7 +183,11 @@ thing if any module of mousiki_tpu is loaded):
      each; every lane ok, PCM within 2e-4 of the golden PCM, the kernel
      launched once a step (counts reset just before); ms a step, the host
      time of each stage of the first step, and one profiled step
-     (device-only trace: kernels, device busy time) of each width;
+     (device-only trace: kernels, device busy time) of each width; the
+     plan emission's three walk launches of the first step (its (S x CAP)
+     planes, kept as it ran) again through the walk kernel, iy equal to
+     the plain walk, and timed as in phase 3b (the same for the lockstep
+     probe of phase 26);
  23. the stream mesh (parallel/streaming.py): every card when there are
      two or more, else two shards on the one card
      (shards_on_one_card=true). CeltStreamPipeline(256, 2, mesh=...,
@@ -218,7 +240,9 @@ Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
 each path's shape, every number of a row measured at that shape, the
 device time with the input in L2 as the path leaves it and with L2
-evicted); the last
+evicted; for each leaf kernel, one row for each path that runs it, its
+numbers those of a step's launches at the path's width: the executor's
+three, and on the lockstep paths the plan emission's three walks); the last
 line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
@@ -246,18 +270,25 @@ import torch
 import batch_stages
 from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
                             load_mono_mix, load_stereo_celt)
+from leaf_cases import synthetic_leaves
 from mousiki_tpu_torch._device import require_cuda
 from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import deemphasis as deemph
+from mousiki_tpu_torch.ops import pvq_leaves as pvq
+from mousiki_tpu_torch.ops._tables import U_K, U_N
 from mousiki_tpu_torch import bench, dred, quality
 from mousiki_tpu_torch.hostcodec.bitstream.repacketizer import \
     opus_packet_unpad
 from mousiki_tpu_torch.hostcodec.opus_encoder import OpusEncoder
 from mousiki_tpu_torch.models import deep_plc, fargan
 from mousiki_tpu_torch.models import dred as rdovae
+from mousiki_tpu_torch.ops import celt_lockstep_emit as lockstep_emit
 from mousiki_tpu_torch.ops import celt_lockstep_top as lockstep
 from mousiki_tpu_torch.ops import encode_front, silk_nsq, synthesis
 from mousiki_tpu_torch.hostcodec.testing import oracle
+from mousiki_tpu_torch.celt.host_native import NativeCeltHostBatch
+from mousiki_tpu_torch.celt.plan import TIERS
+from mousiki_tpu_torch.ops import band_exec
 from mousiki_tpu_torch.ops.band_exec import plan_combo_mats
 from mousiki_tpu_torch.parallel.deep_recovery import BatchedDeepRecovery
 from mousiki_tpu_torch.parallel.streaming import StreamMesh, make_mesh
@@ -308,6 +339,33 @@ QUALITY_TOL = 0.005
 BATCH_TOL = 1e-5
 MESH_TIMING_STEPS = 4
 F_MIXED_MESH = 6                # frames of the mixed mesh check
+# the PVQ leaf kernels against their plain versions: pulse vectors
+# exactly equal, values within the X plane's bar of
+# tests/test_band_exec.py and tests/test_torch_band_exec.py
+LEAF_TOL = 1e-5
+LEAF_FRAMES = (0, 4, 11)        # golden frames of the real-leaf check
+LEAF_TIMING_FRAME = 4
+LEAF_PLANES = ("active", "n", "k", "idx", "gain", "b", "spread")
+# the streams a path runs its leaf stage at: each path's leaves are
+# timed on the golden stereo leaves at that width
+LEAF_PATH_STREAMS = {"celt": S_MAIN, "mixed": S_MAIN,
+                     "celt_lockstep": S_MAIN, "celt_lockstep_mono": S_MAIN,
+                     "bench_e2e": S_MAIN, "bench_e2e_s1024": S_WIDE,
+                     "bench_gate": bench.GATE_STREAMS,
+                     "encode_quality": len(quality.CELT_RATES),
+                     "tool_bench_lockstep": S_MAIN}
+LEAF_KERNELS = {
+    "cwrs_walk": ("mousiki_tpu/ops/band_exec_jax.py:150",
+                  "cwrs_walk_kernel"),
+    "pvq_leaf_values": ("mousiki_tpu/ops/band_exec_jax.py:280",
+                        "pvq_leaf_values_kernel"),
+}
+# the profiled steps of phase 14 at S = 256, at most (28,448 and 26,002
+# before the leaf stage ran as two kernels a tier)
+MAX_STEP_LAUNCHES = {"S256": 5400, "mixed_S256": 3000}
+LEAF_LAUNCHES: dict = {}        # path -> {kernel: launches in its run}
+# lockstep path -> the times of its plan emission's walk launches a step
+EMISSION_WALK: dict = {}
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -352,14 +410,17 @@ def _timed(fn):
 
 
 def phase_build():
-    """g++ for the three host libraries and nvcc for the kernel, started
-    together."""
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    """g++ for the three host libraries and nvcc for the two kernel
+    sources, started together."""
+    with ThreadPoolExecutor(max_workers=5) as pool:
         hosts = {name: pool.submit(_timed, partial(_build.build_host, name))
                  for name in _build.HOST_LIBS}
         kernel = pool.submit(_timed, deemph.build_kernel)
+        leaves = pool.submit(_timed, pvq.build_kernel)
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
+            leaf_kernels="csrc/pvq_leaves.cu",
+            leaf_kernels_seconds=leaves.result(),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
 
@@ -471,16 +532,315 @@ def phase_kernel(dev, shapes):
     return table
 
 
+# ------------------------------------------------------ PVQ leaf kernels
+
+def _reset_launches() -> None:
+    """Every kernel's launch count to 0, just before a path's run."""
+    deemph.reset_launches()
+    pvq.reset_launches()
+
+
+def _leaf_counts() -> dict:
+    return {"cwrs_walk": pvq.cwrs_walk_launches,
+            "pvq_leaf_values": pvq.pvq_leaf_values_launches}
+
+
+def _leaf_launches(path: str, steps: int, got=None, after_each=None,
+                   calls_a_step: int = 1, walk_sites: int = 1) -> dict:
+    """The leaf kernels' launches `got` (default: the counts now) in a
+    path's run of `steps` steps (counts reset just before it), kept for
+    the kernels line: each kernel launched, and at most once a tier in
+    each step and each of its `calls_a_step` executor calls (mesh
+    shards), the walk in each of its `walk_sites` (the lockstep step
+    walks in its plan emission too), counted after each step where
+    `after_each` holds the counts, else over the run."""
+    got = dict(_leaf_counts() if got is None else got)
+    most = {"cwrs_walk": 3 * calls_a_step * walk_sites,
+            "pvq_leaf_values": 3 * calls_a_step}
+    for name, n in got.items():
+        check(n > 0, f"{path}: {name} never launched")
+        if after_each is None:
+            per = [n / steps]
+        else:
+            seen = [0] + [c[name] for c in after_each]
+            per = [b - a for a, b in zip(seen, seen[1:])]
+        check(max(per) <= most[name],
+              f"{path}: {name} launches a step {per}: at most "
+              f"{most[name]} expected")
+    LEAF_LAUNCHES[path] = got
+    return got
+
+
+def _golden_leaves(dev, streams, S, frames):
+    """{frame: [per tier {plane: 1-D tensor}]}: the golden stereo
+    streams' leaf planes at S streams (stream s plays golden stream
+    s % 3), decoded by the native host stage under the current plan
+    profile and unpacked on the card."""
+    host = NativeCeltHostBatch(S)
+    out = {}
+    for f in range(max(frames) + 1):
+        arenas, aux, _ = host.decode_plan_arenas(
+            frame_batch(streams, S, f), FRAME)
+        check(bool((aux["rcs"] >= 0).all()), f"host decode of frame {f}")
+        if f not in frames:
+            continue
+        backing = torch.from_numpy(arenas["backing"].copy()).to(dev)
+        p, *_ = band_exec.unpack_plan_arenas(
+            *band_exec.split_backing(backing, channels=2, frame=FRAME,
+                                     n_streams=S), channels=2, frame=FRAME)
+        p = band_exec._normalize_plan(p)
+        out[f] = [{name: p[f"pvq_{name}"][t].reshape(-1)
+                   for name in LEAF_PLANES} for t in range(3)]
+    return out
+
+
+def _walk_check(label, leaves, nmax):
+    """The walk kernel against the plain walk on one tier's leaves: iy
+    equal. Returns iy."""
+    walk_args = [leaves[x] for x in ("active", "n", "k", "idx")]
+    iy = pvq.cwrs_walk(*walk_args, nmax)
+    want_iy = pvq.cwrs_walk_reference(*walk_args, nmax)
+    check(torch.equal(iy, want_iy), f"{label}: cwrs_walk differs from the "
+          f"plain walk in {int((iy != want_iy).any(dim=1).sum())} leaves")
+    return iy
+
+
+def _leaf_check(label, leaves, nmax):
+    """Both kernels against the plain versions on one tier's leaves: iy
+    equal, values within LEAF_TOL. Returns the values' error."""
+    value_args = [leaves[x] for x in ("active", "n", "k", "gain", "b",
+                                      "spread")]
+    iy = _walk_check(label, leaves, nmax)
+    vals = pvq.pvq_leaf_values(iy, *value_args, nmax)
+    want = pvq.pvq_leaf_values_reference(iy, *value_args, nmax)
+    check(bool(torch.isfinite(vals).all()), f"{label}: values not finite")
+    err = (vals - want).abs().max().item()
+    check(err <= LEAF_TOL, f"{label}: pvq_leaf_values {err} from the plain "
+          f"version (bar {LEAF_TOL})")
+    return err
+
+
+def walk_work(iy: np.ndarray, n: np.ndarray) -> tuple[int, int]:
+    """(bytes, operations) the walk of these leaves needs, from its
+    output iy (leaves, nmax): each plane read once (1 + 3 x 8 bytes a
+    leaf), iy written once, and each U-table entry some leaf reads, once.
+    At position j < n - 1, while k_j pulses are left, a leaf that places
+    q_j there reads U(n - j, k_j + 1) and U(n - j, k_j - q_j .. k_j);
+    three integer operations a read (load, compare, subtract)."""
+    leaves, nmax = iy.shape
+    a = np.abs(iy).astype(np.int64)
+    left = a.sum(axis=1, keepdims=True) - np.cumsum(a, axis=1) + a
+    visit = (np.arange(nmax)[None, :] < (n - 1)[:, None]) & (left > 0)
+    leaf, j = np.nonzero(visit)
+    row, q, kj = n[leaf] - j, a[leaf, j], left[leaf, j]
+    # the entries read, as runs [kj - q, kj + 1] of a row: a difference
+    # array a row
+    runs = np.zeros((U_N, U_K + 1), np.int64)
+    np.add.at(runs, (row, kj - q), 1)
+    np.add.at(runs, (row, kj + 2), -1)
+    entries = int((np.cumsum(runs, axis=1) > 0).sum())
+    nbytes = leaves * 25 + 4 * entries + iy.nbytes
+    return nbytes, 3 * int((q + 2).sum())
+
+
+def values_work(active, n, k, b, spread, nmax: int) -> tuple[int, int]:
+    """(bytes, operations) of the values kernel on these leaves: iy and
+    the six planes read once (4 nmax + 37 bytes a leaf), the values
+    written once (4 nmax); 3 nmax flops a leaf for the normalisation
+    (square, add, scale) and 6 a rotation step (two products and a sum
+    for each of the pair's two new values), each pass of a chain
+    sweeping len - stride steps forward and len - 2 stride back."""
+    active, n, k = np.asarray(active, bool), np.asarray(n), np.asarray(k)
+    b, spread = np.asarray(b), np.asarray(spread)
+    leaves = n.size
+    nbytes = leaves * (8 * nmax + 37)
+    flops = 3 * nmax * leaves
+    rot = active & (2 * k < n) & (spread != 0) & (n <= nmax)
+    for nn, bb in zip(n[rot].tolist(), b[rot].tolist()):
+        stride = max(bb, 1)
+        st2 = 0
+        if nn >= 8 * stride:
+            st2 = 1
+            while (st2 * st2 + st2) * stride + (stride >> 2) < nn:
+                st2 += 1
+        ln = nn // stride
+        steps = max(ln - 1, 0) + max(ln - 2, 0)
+        if st2:
+            steps += max(ln - st2, 0) + max(ln - 2 * st2, 0)
+        flops += 6 * steps * stride
+    return nbytes, flops
+
+
+def _kernel_times(name, fn, plain, nbytes: int, ops: int) -> dict:
+    """One kernel's device time a launch (torch.profiler), its bound
+    (bytes over HBM bandwidth against operations over the fp32 peak),
+    the plain version's device time and CUDA-event times of a call of
+    both."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    ms = _device_ms(fn, match=LEAF_KERNELS[name][1])
+    return dict(ms=ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, operations=ops,
+                bound_share=max(t_bytes, t_ops) / ms,
+                plain_ms=_device_ms(plain, reps=2),
+                call_ms=_cuda_ms(fn, 100), plain_call_ms=_cuda_ms(plain, 2))
+
+
+def _walk_times(leaves, nmax):
+    walk_args = [leaves[x] for x in ("active", "n", "k", "idx")]
+    iy = pvq.cwrs_walk(*walk_args, nmax)
+    return _kernel_times(
+        "cwrs_walk", partial(pvq.cwrs_walk, *walk_args, nmax),
+        partial(pvq.cwrs_walk_reference, *walk_args, nmax),
+        *walk_work(iy.cpu().numpy(), leaves["n"].cpu().numpy()))
+
+
+def _leaf_times(leaves, nmax):
+    """The times and bounds of one tier's launch of each kernel."""
+    value_args = [leaves[x] for x in ("active", "n", "k", "gain", "b",
+                                      "spread")]
+    iy = pvq.cwrs_walk(*[leaves[x] for x in ("active", "n", "k", "idx")],
+                       nmax)
+    cpu = {k: v.cpu().numpy() for k, v in leaves.items()}
+    return {"leaves": len(cpu["n"]), "nmax": nmax,
+            "active": int(cpu["active"].sum()),
+            "cwrs_walk": _walk_times(leaves, nmax),
+            "pvq_leaf_values": _kernel_times(
+                "pvq_leaf_values",
+                partial(pvq.pvq_leaf_values, iy, *value_args, nmax),
+                partial(pvq.pvq_leaf_values_reference, iy, *value_args,
+                        nmax),
+                *values_work(cpu["active"], cpu["n"], cpu["k"], cpu["b"],
+                             cpu["spread"], nmax))}
+
+
+def _step_sums(rows, name, max_abs_err):
+    """A step's launches of one kernel, one row a launch: times and
+    bounds summed, the bound of the launch with the largest."""
+    sums = {key: sum(r[name][key] for r in rows)
+            for key in ("ms", "bound_ms", "plain_ms", "call_ms",
+                        "plain_call_ms")}
+    longest = max(rows, key=lambda r: r[name]["bound_ms"])
+    sums.update(bound_by=longest[name]["bound_by"],
+                shape=[[r["leaves"], r["nmax"]] for r in rows],
+                max_abs_err=max_abs_err)
+    return sums
+
+
+@contextlib.contextmanager
+def _emission_walks():
+    """Keep copies of the planes of the lockstep plan emission's walk
+    launches (one a tier, celt_lockstep_emit.cwrs_walk) of the first step
+    run inside: a list of (planes, nmax)."""
+    calls = []
+    walk = lockstep_emit.cwrs_walk
+
+    def keep(active, n, k, idx, nmax):
+        if len(calls) < len(TIERS):
+            calls.append(({"active": active.clone(), "n": n.clone(),
+                           "k": k.clone(), "idx": idx.clone()}, nmax))
+        return walk(active, n, k, idx, nmax)
+
+    lockstep_emit.cwrs_walk = keep
+    try:
+        yield calls
+    finally:
+        lockstep_emit.cwrs_walk = walk
+
+
+def _emission_walk_times(path, calls):
+    """The emission's walk planes of one step (_emission_walks) through
+    the kernel against the plain walk (iy equal), then the times and
+    bounds of each launch, kept for the path's kernels row."""
+    check(len(calls) == len(TIERS),
+          f"{path}: {len(calls)} emission walks seen in a step")
+    rows = []
+    for t, (leaves, nmax) in enumerate(calls):
+        _walk_check(f"{path} emission tier {t}", leaves, nmax)
+        rows.append({"leaves": leaves["n"].numel(), "nmax": nmax,
+                     "active": int(leaves["active"].sum()),
+                     "cwrs_walk": _walk_times(leaves, nmax)})
+        say(f"emission_walk_{path}_tier{t}", **rows[-1])
+    EMISSION_WALK[path] = _step_sums(rows, "cwrs_walk", 0.0)
+
+
+def _rows_of(leaves, S):
+    """The same leaf planes at S streams: stream s plays golden stream
+    s % 3, as in the S_MAIN planes the rows come from."""
+    dev = leaves[0]["n"].device
+    rows = torch.arange(S, device=dev) % 3
+    out = []
+    for t in range(3):
+        slots = leaves[t]["n"].numel() // S_MAIN
+        sel = (rows[:, None] * slots
+               + torch.arange(slots, device=dev)[None, :]).reshape(-1)
+        out.append({k: v[sel].contiguous() for k, v in leaves[t].items()})
+    return out
+
+
+def phase_leaf_kernels(dev, streams, widths):
+    """cwrs_walk and pvq_leaf_values against their plain versions on the
+    card: (a) the golden stereo leaves at S = 256 under the serving
+    profile, frames 0, 4 and 11, every tier; (b) seeded synthetic leaves
+    (leaf_cases.synthetic_leaves) of every tier. Then the times and
+    bounds of a step's three launches of each at every width in `widths`
+    (the streams of a path's step or of a mesh shard's). Returns {S:
+    {kernel: sums over the tiers}}."""
+    golden = _golden_leaves(dev, streams, S_MAIN, LEAF_FRAMES)
+    worst = 0.0
+    checked = 0
+    for f in LEAF_FRAMES:
+        for t, (nmax, _) in enumerate(TIERS):
+            worst = max(worst, _leaf_check(f"frame {f} tier {t}",
+                                           golden[f][t], nmax))
+            checked += int(golden[f][t]["active"].sum())
+    syn_worst = 0.0
+    syn_count = 0
+    synthetic = []
+    for t, (nmax, _) in enumerate(TIERS):
+        d = synthetic_leaves(nmax, seed=100 + t)
+        leaves = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+        syn_worst = max(syn_worst, _leaf_check(f"synthetic tier {t}",
+                                               leaves, nmax))
+        syn_count += len(d["n"])
+        synthetic.append(leaves)
+    active = {f"frame{f}": [int(golden[f][t]["active"].sum())
+                            for t in range(3)] for f in LEAF_FRAMES}
+    say("leaf_kernels", golden_active_leaves=checked,
+        golden_active_by_tier=active,
+        golden_worst_value_err=worst, synthetic_leaves=syn_count,
+        synthetic_worst_value_err=syn_worst, iy="equal", bar=LEAF_TOL)
+    # every tier with active leaves of every (n, k): what a tier the
+    # golden frames leave idle would cost
+    for t, (nmax, _) in enumerate(TIERS):
+        say(f"leaf_times_synthetic_tier{t}", **_leaf_times(synthetic[t],
+                                                           nmax))
+    table = {}
+    base = golden[LEAF_TIMING_FRAME]
+    for S in sorted(widths):
+        tiers = base if S == S_MAIN else _rows_of(base, S)
+        rows = [_leaf_times(tiers[t], nmax)
+                for t, (nmax, _) in enumerate(TIERS)]
+        for t, row in enumerate(rows):
+            say(f"leaf_times_S{S}_tier{t}", **row)
+        table[S] = {name: _step_sums(rows, name, 0.0 if name == "cwrs_walk"
+                                     else max(worst, syn_worst))
+                    for name in LEAF_KERNELS}
+    return table
+
+
 def phase_main_path(dev, streams):
     S, F = S_MAIN, 12
     pipe = CeltStreamPipeline(S, channels=2, use_plan=True, device=dev)
-    deemph.reset_launches()
+    _reset_launches()
     worst = 0.0
-    launches = []
+    launches, leaf_after = [], []
     for f in range(F):
         pcm = pipe.step(frame_batch(streams, S, f), FRAME)
         torch.cuda.synchronize()
         launches.append(deemph.deemphasis_launches)
+        leaf_after.append(_leaf_counts())
         got = pcm.cpu().numpy()
         check(got.shape == (S, FRAME, 2), f"pcm shape {got.shape}")
         check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
@@ -492,13 +852,15 @@ def phase_main_path(dev, streams):
     n = deemph.deemphasis_launches
     check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
           f"deemphasis launches per step {launches}: one a step expected")
+    leaf = _leaf_launches("celt", F, after_each=leaf_after)
     # the arena is staged in page-locked memory, so its copy is asynchronous
     arena = pipe._native._plan_db[FRAME][1][0][0]["backing"]
     pinned = torch.from_numpy(arena).is_pinned()
     check(pinned, "the plan arena is not in page-locked memory")
     say("main_path", streams=S, frames=F, worst_abs_err_vs_golden=worst,
         bar=GOLDEN_TOL, deemphasis_launches=n,
-        launches_after_each_step=launches, arena_pinned=pinned)
+        launches_after_each_step=launches, leaf_kernel_launches=leaf,
+        arena_pinned=pinned)
     return n, worst
 
 
@@ -624,14 +986,15 @@ def phase_celt_modes(dev, streams):
 def phase_mixed_main(dev, mono):
     S, F = S_MAIN, 12
     pipe = OpusStreamPipeline(S, channels=1, device=dev)
-    deemph.reset_launches()
+    _reset_launches()
     worst = 0.0
-    launches = []
+    launches, leaf_after = [], []
     modes = set()
     for f in range(F):
         pcm = pipe.step(frame_batch(mono, S, f, packets=True))
         torch.cuda.synchronize()
         launches.append(deemph.deemphasis_launches)
+        leaf_after.append(_leaf_counts())
         got = pcm.cpu().numpy()
         check(got.shape == (S, FRAME, 1), f"mixed pcm shape {got.shape}")
         check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
@@ -648,9 +1011,11 @@ def phase_mixed_main(dev, mono):
           "expected")
     check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
           f"deemphasis launches per mixed step {launches}: one expected")
+    leaf = _leaf_launches("mixed", F, after_each=leaf_after)
     say("mixed_main_path", streams=S, frames=F, modes=sorted(modes),
         worst_abs_err_vs_golden=worst, bar=GOLDEN_TOL,
-        deemphasis_launches=n, launches_after_each_step=launches)
+        deemphasis_launches=n, launches_after_each_step=launches,
+        leaf_kernel_launches=leaf)
     return n
 
 
@@ -724,11 +1089,13 @@ def _profile_step(step, tag=None):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    leaf_before = _leaf_counts()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    leaf = {k: v - leaf_before[k] for k, v in _leaf_counts().items()}
     launches: dict = {}
     host_ms: dict = {}
     device_us = 0.0
@@ -751,13 +1118,21 @@ def _profile_step(step, tag=None):
     return {"launches": sum(launches.values()), "device_kernels": kernels,
             "device_busy_ms": round(device_us / 1e3, 3),
             "profiled_wall_ms": round(wall_ms, 3),
+            "leaf_kernel_launches": leaf,
             "launches_by_span": launches, "host_ms_by_span": host_ms}
 
 
 def _profile(name, step_of_frame):
     """One profiled step (of frame 5). The profiler is warm from phase 3
-    on, and the pipeline has run steps before."""
-    say(f"profile_{name}", **_profile_step(partial(step_of_frame, 5), name))
+    on, and the pipeline has run steps before. A step with a launch
+    budget (MAX_STEP_LAUNCHES) is held to it."""
+    prof = _profile_step(partial(step_of_frame, 5), name)
+    say(f"profile_{name}", **prof)
+    if name in MAX_STEP_LAUNCHES:
+        check(prof["launches"] <= MAX_STEP_LAUNCHES[name],
+              f"profiled step {name}: {prof['launches']} launches, at most "
+              f"{MAX_STEP_LAUNCHES[name]} expected")
+    return prof
 
 
 def phase_timing(dev, streams, mono):
@@ -1106,10 +1481,11 @@ def phase_encode_quality(dev, card):
     corpus = quality.load_corpus()
     ref16 = quality.downmix_16k(corpus[: len(corpus) // FRAME * FRAME])
     t0 = time.perf_counter()
-    deemph.reset_launches()
+    _reset_launches()
     scores = quality.score(ref16, celt, 2,
                            partial(quality.decode_celt_port, device=dev))
     launches = deemph.deemphasis_launches
+    leaf = _leaf_counts()
     t_decode = time.perf_counter() - t0
     celt_rows = []
     for k, rate in enumerate(quality.CELT_RATES):
@@ -1147,12 +1523,14 @@ def phase_encode_quality(dev, card):
     frames = len(celt[0])
     say("encode_quality", card=card, celt=celt_rows, celt_tol=QUALITY_TOL,
         silk=silk_rows, silk_frames=n, silk_margin_db=ENCODE_SNR_MARGIN_DB,
-        deemphasis_launches=launches, celt_frames=frames,
+        deemphasis_launches=launches, leaf_kernel_launches=leaf,
+        celt_frames=frames,
         celt_encode_seconds=round(t_encode, 1),
         celt_decode_score_seconds=round(t_decode, 1),
         silk_encode_seconds=round(t_silk, 1))
     check(launches == frames, f"encode quality decode: {launches} "
           f"deemphasis launches in {frames} frames: one a frame expected")
+    _leaf_launches("encode_quality", frames, got=leaf)
     return launches
 
 
@@ -1396,7 +1774,7 @@ def phase_python_host(dev, streams):
     pipe = CeltStreamPipeline(S, 2, use_native=False, device=dev)
     check(pipe._native is None and len(pipe._py_hosts) == S,
           "use_native=False did not take the Python host")
-    deemph.reset_launches()
+    _reset_launches()
     worst, launches, step_ms = 0.0, [], []
     for f in range(F):
         t0 = time.perf_counter()
@@ -1667,8 +2045,8 @@ def phase_lockstep(dev, streams, mono):
                 frame=FRAME)
             return pcm, ok
 
-        deemph.reset_launches()
-        worst, step_ms, after = 0.0, [], []
+        _reset_launches()
+        worst, step_ms, after, leaf_after = 0.0, [], [], []
         prof = None
         for f in range(F):
             out = []
@@ -1676,12 +2054,13 @@ def phase_lockstep(dev, streams, mono):
                 prof = _device_trace(lambda: out.append(step(f)))
                 step_ms.append(prof["profiled_wall_ms"])
             else:
-                with _StageTimer() as stages:
+                with _StageTimer() as stages, _emission_walks() as walks:
                     t = time.perf_counter()
                     out.append(step(f))
                     torch.cuda.synchronize()
                     step_ms.append(round((time.perf_counter() - t) * 1e3, 3))
             after.append(deemph.deemphasis_launches)
+            leaf_after.append(_leaf_counts())
             pcm, ok = out[0]
             n_ok = int(ok.sum())
             check(n_ok == S, f"{name} frame {f}: {S - n_ok} lanes not ok")
@@ -1696,10 +2075,14 @@ def phase_lockstep(dev, streams, mono):
         n = deemph.deemphasis_launches
         check(after == list(range(1, F + 1)),
               f"{name}: deemphasis launches after each step {after}")
+        # the walk runs in the plan emission and in the executor
+        leaf = _leaf_launches(name, F, after_each=leaf_after, walk_sites=2)
+        _emission_walk_times(name, walks)
         launches[name] = n
         say(f"lockstep_{name}", streams=S, channels=C, frames=F,
             worst_abs_err_vs_golden=worst, bar=GOLDEN_TOL,
-            deemphasis_launches=n, ms_per_step=step_ms[0],
+            deemphasis_launches=n, leaf_kernel_launches=leaf,
+            ms_per_step=step_ms[0],
             realtime_x=S * 0.02 / (step_ms[0] / 1e3),
             stage_ms_first_step=stages.ms,
             launches_per_step=prof["device_kernels"],
@@ -1731,7 +2114,7 @@ def _mesh_against_single(name, dev, mesh, make_pipe, batch_fn, S, F, lost):
             for f in range(F)]
     del single
     pipe = make_pipe(mesh)
-    deemph.reset_launches()
+    _reset_launches()
     got = []
     for f in range(F):
         pcm = pipe.step(batch_fn(f, lost[:, f]))
@@ -1754,6 +2137,8 @@ def _mesh_against_single(name, dev, mesh, make_pipe, batch_fn, S, F, lost):
     check(launches == F * mesh.size,
           f"{name}: {launches} deemphasis launches, {F * mesh.size} "
           "expected (one a shard a step)")
+    _leaf_launches(name.replace("mesh_", "") + "_mesh", F,
+                   calls_a_step=mesh.size)
     return got, launches, worst_clean, worst_touched
 
 
@@ -1808,9 +2193,14 @@ def phase_mesh(dev, streams, mono, mesh, S, one_card):
         for key, value in (("ms_per_step", float(np.median(ms))),
                            ("ms_per_step_min", min(ms)),
                            ("ms_per_step_runs", ms))})
-    # one profiled step: the profiler is warm from the phases before
+    # one profiled step of each: the profiler is warm from the phases
+    # before; a mesh step should launch a single step's kernels a shard
+    # and the gather's concatenation
+    single = _profile_step(lambda: pipes["single"].step(batch(5)))
     prof = _profile_step(lambda: pipes["mesh"].step(batch(5)), "mesh_S256")
-    say("profile_mesh_S256", predicted_launches=mesh.size * 28448,
+    say("profile_mesh_S256",
+        predicted_launches=mesh.size * single["launches"] + 1,
+        single_device_launches=single["launches"],
         gather_launches=prof["launches_by_span"].get("mesh.gather", 0),
         gather_host_ms=prof["host_ms_by_span"].get("mesh.gather", 0.0),
         **prof)
@@ -1869,18 +2259,20 @@ def phase_bench(dev):
     for S, path in ((S_MAIN, "bench_e2e"), (S_WIDE, "bench_e2e_s1024")):
         pipe = CeltStreamPipeline(S, 2, use_plan=True, device=dev)
         bench.e2e_window(pipe, pays, 2)
-        deemph.reset_launches()
+        _reset_launches()
         bench.e2e_window(pipe, pays, BENCH_WINDOW)
         launches[path] = deemph.deemphasis_launches
+        _leaf_launches(path, BENCH_WINDOW)
         check(launches[path] == BENCH_WINDOW,
               f"{path}: {launches[path]} deemphasis launches in "
               f"{BENCH_WINDOW} steps: one a step expected")
         del pipe
     n_gate = bench.QUICK.gate_frames
-    deemph.reset_launches()
+    _reset_launches()
     r, _ = bench._gate_one(pays[:n_gate], fx["synthetic"]["ref16k_quick"],
                            dev)
     launches["bench_gate"] = deemph.deemphasis_launches
+    _leaf_launches("bench_gate", n_gate)
     check(launches["bench_gate"] == n_gate,
           f"gate: {launches['bench_gate']} deemphasis launches in "
           f"{n_gate} frames: one a frame expected")
@@ -1899,7 +2291,7 @@ def _entry_batch_decode(dev):
     """examples/torch_batch_decode.py at its defaults: S = 8, 25 frames,
     the non-plan pipeline; against the plan pipeline."""
     twin = load_script("examples/torch_batch_decode.py")
-    deemph.reset_launches()
+    _reset_launches()
     pkts, out = twin.run(S_EXAMPLE, device=dev)
     torch.cuda.synchronize()
     launches = deemph.deemphasis_launches
@@ -2101,10 +2493,13 @@ def _entry_bench_lockstep(dev, card):
     """tools/torch_bench_lockstep.py at S = 256: the first step and one
     trial of one step; against the plan pipeline's first step."""
     probe = load_script("tools/torch_bench_lockstep.py")
-    deemph.reset_launches()
-    res = probe.run(S_MAIN, device=dev, iters=1, trials=1)
+    _reset_launches()
+    with _emission_walks() as walks:
+        res = probe.run(S_MAIN, device=dev, iters=1, trials=1)
     torch.cuda.synchronize()
     launches = deemph.deemphasis_launches
+    leaf = _leaf_launches("tool_bench_lockstep", 2, walk_sites=2)
+    _emission_walk_times("tool_bench_lockstep", walks)
     check(launches == 2, f"lockstep probe: {launches} deemphasis launches "
           "in 2 steps: one a step expected")
     n_ok = int(res["ok"].sum())
@@ -2123,7 +2518,7 @@ def _entry_bench_lockstep(dev, card):
         first_step_s=res["first_s"], ms_per_step=res["step_ms"][0],
         realtime_x=res["realtime_x"][0], worst_abs_err_vs_plan=err,
         bar=GOLDEN_TOL, lanes_ok=n_ok, deemphasis_launches=launches,
-        card=repr(card))
+        leaf_kernel_launches=leaf, card=repr(card))
     return launches
 
 
@@ -2180,6 +2575,9 @@ def main() -> int:
     streams = load_stereo_celt()
     mono = load_mono_mix()
     set_plan_profile(*SERVING_PROFILE)
+    shard = s_mesh // mesh.size
+    leaf_table = _phase("leaf_kernels", phase_leaf_kernels, dev, streams,
+                        set(LEAF_PATH_STREAMS.values()) | {shard})
     n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
     _phase("loss", phase_loss, dev, streams)
     _phase("celt_modes", phase_celt_modes, dev, streams)
@@ -2239,6 +2637,37 @@ def main() -> int:
              n_entry["example_batch_decode"]),
             ("tool_bench_lockstep", CELT_SHAPE,
              n_entry["tool_bench_lockstep"]))]}
+    # one row for each leaf kernel and path that runs it: the path's
+    # launches beside the times of all its launches in a step: the
+    # executor's three (one a tier) at the path's width, measured by
+    # phase 3b, and on the lockstep paths the plan emission's three walks
+    # too, measured on that run's planes
+    widths = dict(LEAF_PATH_STREAMS, celt_mesh=shard, mixed_mesh=shard)
+
+    def step_row(path, name):
+        row = leaf_table[widths[path]][name]
+        emitted = EMISSION_WALK.get(path) if name == "cwrs_walk" else None
+        if emitted is None:
+            return row
+        both = [row, emitted]
+        return {"shape": row["shape"] + emitted["shape"],
+                "max_abs_err": row["max_abs_err"],
+                "bound_by": max(both, key=lambda r: r["bound_ms"])[
+                    "bound_by"],
+                **{key: row[key] + emitted[key]
+                   for key in ("ms", "plain_ms", "bound_ms")}}
+
+    kernels["kernels"] += [{
+        "name": name, "route": "cuda",
+        "source": "mousiki_tpu_torch/csrc/pvq_leaves.cu",
+        "replaces": LEAF_KERNELS[name][0], "path": path,
+        "launches": counts[name],
+        **{key: step_row(path, name)[key]
+           for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by")},
+        # no PyTorch call decodes CWRS or applies the spreading rotation
+        "library_ms": None}
+        for path, counts in LEAF_LAUNCHES.items() for name in LEAF_KERNELS]
     RESULTS["kernels"] = kernels
     say("run", seconds=round(time.perf_counter() - t_start, 1),
         **RESULTS["phase_seconds"])

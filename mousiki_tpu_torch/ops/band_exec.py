@@ -4,11 +4,10 @@ mousiki_tpu/ops/band_exec_jax.py.
 For S streams at once, everything `bands.quant_all_bands` (decode side)
 does to the signal after the symbols are known:
 
-  P1  CWRS index -> pulse vector walk (cwrs.rs cwrsi), a Python loop over
-      coefficient positions with a windowed search of the saturated u32
-      U(n,k) table.
-  P2  PVQ spreading rotation (vq.rs exp_rotation): each Givens-chain pass
-      is a first-order affine recurrence, solved by log-step doubling.
+  P1  CWRS index -> pulse vector walk (cwrs.rs cwrsi), and
+  P2  normalisation and PVQ spreading rotation (vq.rs exp_rotation):
+      ops/pvq_leaves.py, two CUDA kernels a tier on the card (plain torch
+      versions on the CPU).
   P3  Band assembly in band order (a Python loop over the 21 bands):
       gather from the leaf pool, fold/noise fills (counter-form LCG),
       per-stream pre/post transform operators, norm-buffer upkeep, stereo
@@ -37,8 +36,8 @@ from .. import _device
 from ..celt import host_native
 from ..celt.modes import MODE
 from ..celt.plan import TIERS
-from ._tables import (LCG_MAX, SPREAD_FACTOR, U_K, U_N, lcg_jump,
-                      plan_combo_mats_np, u_table)
+from ._tables import LCG_MAX, lcg_jump, plan_combo_mats_np
+from .pvq_leaves import cwrs_walk, pvq_leaf_values
 
 _M32 = 0xFFFFFFFF
 
@@ -46,20 +45,10 @@ _M32 = 0xFFFFFFFF
 # ------------------------------------------------------------------ consts
 
 @lru_cache(maxsize=None)
-def _u_table_t(device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(u_table().astype(np.int64), device=device)
-
-
-@lru_cache(maxsize=None)
 def _lcg_t(device: torch.device):
     A, Cc = lcg_jump()
     return (torch.as_tensor(A.astype(np.int64), device=device),
             torch.as_tensor(Cc.astype(np.int64), device=device))
-
-
-@lru_cache(maxsize=None)
-def _spread_factor_t(device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(SPREAD_FACTOR, device=device)
 
 
 def plan_combo_mats(channels: int, frame: int, device):
@@ -83,193 +72,6 @@ def _lcg(A_J, C_J, d, seed):
 def _as_i32(u):
     """Signed reinterpretation of u32 values held in int64."""
     return u - ((u >> 31) << 32)
-
-
-# ------------------------------------------------------------------ P1 walk
-
-# loop steps beyond nmax: windowed retry descents (pending) take extra
-# steps that do not advance the position
-_WALK_SLACK = 12
-
-def cwrs_walk(active, n, k0, idx, nmax: int):
-    """Batched cwrsi walk. active bool, n/k0 int64, idx u32 in int64 ->
-    iy (B, nmax) int64."""
-    dev = n.device
-    U = _u_table_t(dev)
-    ar16 = torch.arange(16, device=dev)
-    arn = torch.arange(nmax, device=dev)
-
-    j = torch.zeros_like(n)
-    k = k0.clone()
-    kj = k0.clone()
-    idxv = idx.clone()
-    pending = torch.zeros_like(active)
-    psign = torch.zeros_like(active)
-    done = ~active
-    iy = torch.zeros((n.shape[0], nmax), dtype=torch.int64, device=dev)
-    for _ in range(nmax + _WALK_SLACK):
-        m = n - j
-        last = j >= n - 1
-        work = active & ~done
-        mm = torch.clamp(m, 0, U_N - 1)
-
-        p1 = U[mm, torch.clamp(k + 1, 0, U_K - 1)]
-        new_sign = idxv >= p1
-        idx_sub = torch.where(work & ~last & ~pending & new_sign,
-                              idxv - p1, idxv)
-        sgn = torch.where(pending, psign, new_sign)
-
-        lo = torch.clamp(k - 15, min=0)
-        colidx = lo[:, None] + ar16[None, :]
-        rows = U[mm[:, None], torch.clamp(colidx, 0, U_K - 1)]
-        cand = (rows <= idx_sub[:, None]) & (colidx <= k[:, None])
-        found = cand.any(dim=1)
-        kidx = torch.where(cand, colidx, -1).amax(dim=1)
-        pval = U[mm, torch.clamp(kidx, 0, U_K - 1)]
-        q = kj - kidx
-        yval = torch.where(sgn, -q, q)
-
-        # k can only short-circuit the tail to zeros when it reached 0
-        # through a resolution; during a windowed retry descent (pending)
-        # k == 0 still needs resolving (q = kj pulses at j)
-        resolve = work & ~last & ((k > 0) | pending) & found
-        retry = work & ~last & (k > 0) & ~found
-        fin_zero = work & ~last & (k == 0) & ~pending
-        fin_last = work & last
-
-        klast = torch.where(idxv != 0, -k, k)
-        val = torch.where(fin_last, klast, yval)
-        wpos = torch.where(fin_last, torch.clamp(n - 1, 0, nmax - 1),
-                           torch.clamp(j, 0, nmax - 1))
-        do_write = resolve | fin_last
-        onehot = (arn[None, :] == wpos[:, None]) & do_write[:, None]
-        iy = torch.where(onehot, val[:, None], iy)
-
-        j = torch.where(resolve, j + 1, j)
-        k_next = torch.where(resolve, kidx, torch.where(retry, lo - 1, k))
-        kj = torch.where(resolve, kidx, kj)
-        idxv = torch.where(resolve, idx_sub - pval, idx_sub)
-        psign = torch.where(work & ~last, sgn, psign)
-        pending = retry
-        done = done | fin_last | fin_zero
-        k = k_next
-    return iy
-
-
-# ------------------------------------------------------------ P2 rotation
-
-def _affine_scan(A, Bv):
-    """x_t = A_t * x_{t-1} + B_t along axis 1 (x_{-1} irrelevant when
-    A_0 = 0), by Hillis-Steele doubling."""
-    Q = A.shape[1]
-    pos = torch.arange(Q, device=A.device)[None, :]
-    for level in range(max(1, (Q - 1).bit_length())):
-        s = 1 << level
-        valid = pos >= s
-        Ash = torch.roll(A, s, dims=1)
-        Bsh = torch.roll(Bv, s, dims=1)
-        Bv = torch.where(valid, Bv + A * Bsh, Bv)
-        A = torch.where(valid, A * Ash, A)
-    return Bv
-
-
-def _rot1_contig(x, valid, first, lastm, c, s):
-    """One rot1 pass over chain-contiguous data.
-
-    x: (B, Q) values; valid mask; first/last-in-chain masks; c, s (B, 1).
-    Returns the transformed values (invalid positions pass through).
-    """
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    b = torch.where(valid, x, zero)
-    # forward: a_t = c*b_t + s*a_{t-1}, a_0 = b_0 per chain
-    A = torch.where(first | ~valid, zero, s)
-    Bv = torch.where(first, b, c * b)
-    Bv = torch.where(valid, Bv, zero)
-    a = _affine_scan(A, Bv)
-    b_next = torch.roll(b, -1, dims=1)
-    out_f = torch.where(lastm, a, c * a - s * b_next)
-    y = torch.where(valid, out_f, x)
-    # backward on flipped chains: d'_v = c*y'_v + (-s)*d'_{v-1}, start v=1
-    yf = torch.flip(torch.where(valid, y, zero), dims=(1,))
-    validf = torch.flip(valid, dims=(1,))
-    firstf = torch.flip(lastm, dims=(1,))   # chain-last becomes flipped-first
-    lastf = torch.flip(first, dims=(1,))
-    # position-within-flipped-chain == 1 marker: previous is flipped-first
-    prev_first = torch.roll(firstf, 1, dims=1)
-    prev_first[:, 0] = False
-    A2 = torch.where(firstf | prev_first | ~validf, zero, -s)
-    B2 = torch.where(prev_first, yf, c * yf)
-    B2 = torch.where(validf, B2, zero)
-    d = _affine_scan(A2, B2)
-    y_next = torch.roll(yf, -1, dims=1)
-    out_b = c * d + s * y_next
-    out_b = torch.where(firstf, yf, torch.where(lastf, d, out_b))
-    yb = torch.flip(torch.where(validf, out_b, yf), dims=(1,))
-    return torch.where(valid, yb, x)
-
-
-def rotate_leaves(vals, active, n, k, b_blocks, spread, nmax: int):
-    """exp_rotation(dir=-1) batched over leaves. vals (B, nmax)."""
-    dev = vals.device
-    fK = k.to(torch.float32)
-    fn = n.to(torch.float32)
-    factor = _spread_factor_t(dev)[torch.clamp(spread, 0, 3)]
-    gain = fn / (fn + factor * fK)
-    theta = 0.5 * gain * gain
-    c = torch.cos(0.5 * math.pi * theta)[:, None]
-    s = torch.cos(0.5 * math.pi * (1.0 - theta))[:, None]
-    do_rot = active & (2 * k < n) & (spread != 0)
-
-    stride = torch.clamp(b_blocks, min=1)
-    seglen = n // stride
-    # stride2 per reference vq.rs exp_rotation
-    v = torch.arange(1, 15, device=dev)
-    cond = ((v[None, :] * v[None, :] + v[None, :]) * stride[:, None]
-            + (stride[:, None] >> 2)) < n[:, None]
-    st2 = 1 + cond.sum(dim=1)
-    st2 = torch.where(n >= 8 * stride, st2, 0)
-
-    pos = torch.arange(nmax, device=dev)[None, :]
-    sl = torch.clamp(seglen, min=1)
-    seg = pos // sl[:, None]
-    r = pos - seg * sl[:, None]
-    in_range = pos < (stride * seglen)[:, None]
-
-    out = vals
-    # ---- pass A: stride2 chains (only when st2 > 0) ------------------
-    # Chain-contiguous arrangement: each chain gets a fixed CLmax-slot
-    # run; q decodes as (seg, chain, t) -> src = seg*seglen + chain +
-    # t*st2. Q is padded so seg_count * st2 * CLmax always fits.
-    Q = nmax + 128
-    stA = torch.clamp(st2, min=1)
-    clmax = (sl + stA - 1) // stA           # (B,)
-    span = torch.clamp(stA * clmax, min=1)   # slots per segment
-    clm = torch.clamp(clmax, min=1)
-    qpos = torch.arange(Q, device=dev)[None, :]
-    segq = qpos // span[:, None]
-    remq = qpos - segq * span[:, None]
-    chainq = remq // clm[:, None]
-    tq = remq - chainq * clm[:, None]
-    srcq = segq * sl[:, None] + chainq + tq * stA[:, None]
-    validq = ((segq < stride[:, None])
-              & (chainq + tq * stA[:, None] < sl[:, None]))
-    xa = torch.gather(out, 1, torch.clamp(srcq, 0, nmax - 1))
-    clenq = (sl[:, None] - chainq + stA[:, None] - 1) // stA[:, None]
-    firstA = validq & (tq == 0)
-    lastA = validq & (tq == clenq - 1)
-    # rot1(seg, seglen, st2, s, c): coefficient args swapped
-    ya = _rot1_contig(xa, validq, firstA, lastA, s, c)
-    # gather back: position p -> q(p)
-    qs = (seg * span[:, None] + (r % stA[:, None]) * clm[:, None]
-          + r // stA[:, None])
-    outA = torch.gather(ya, 1, torch.clamp(qs, 0, Q - 1))
-    out = torch.where(do_rot[:, None] & (st2 > 0)[:, None] & in_range,
-                      outA, out)
-    # ---- pass B: stride-1 chains == segments (already contiguous) ----
-    firstB = in_range & (r == 0)
-    lastB = in_range & (r == sl[:, None] - 1)
-    yb = _rot1_contig(out, in_range, firstB, lastB, c, s)
-    return torch.where(do_rot[:, None] & in_range, yb, out)
 
 
 # ------------------------------------------------------ P3/P4: full executor
@@ -365,25 +167,21 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
         offs.append(offs[-1] + nmax * slots)
     A_J, C_J = _lcg_t(dev)
     f32 = torch.float32
-    zero = torch.zeros((), dtype=f32, device=dev)
 
     # ---- P1 + P2: PVQ leaves per tier -> pool ------------------------
     with record_function("plan.leaves"):
         parts = [torch.zeros((S, 1), dtype=f32, device=dev)]
         for t, (nmax, slots) in enumerate(tiers):
-            act = p["pvq_active"][t].reshape(-1)
-            n = p["pvq_n"][t].reshape(-1)
-            k = p["pvq_k"][t].reshape(-1)
+            # the kernels take contiguous planes; reshape already copies
+            # all but a broadcast plane of one stream
+            act, n, k, idx, gain, b, spread = (
+                p[f"pvq_{key}"][t].reshape(-1).contiguous()
+                for key in ("active", "n", "k", "idx", "gain", "b",
+                            "spread"))
             with record_function("plan.cwrs_walk"):
-                iy = cwrs_walk(act, n, k, p["pvq_idx"][t].reshape(-1), nmax)
-            ryy = (iy * iy).to(f32).sum(dim=1)
-            g = torch.where(ryy > 0, p["pvq_gain"][t].reshape(-1)
-                            / torch.sqrt(ryy), zero)
-            vals = iy.to(f32) * g[:, None]
-            with record_function("plan.rotate_leaves"):
-                vals = rotate_leaves(vals, act, n, k,
-                                     p["pvq_b"][t].reshape(-1),
-                                     p["pvq_spread"][t].reshape(-1), nmax)
+                iy = cwrs_walk(act, n, k, idx, nmax)
+            with record_function("plan.leaf_values"):
+                vals = pvq_leaf_values(iy, act, n, k, gain, b, spread, nmax)
             parts.append(vals.reshape(S, slots * nmax))
         pool = torch.cat(parts, dim=1).double()
 
