@@ -15,8 +15,10 @@ thing if any module of mousiki_tpu is loaded):
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
   2. build, all at once: the three native host libraries (csrc/*.cpp,
      g++: celt_host, silk_host, opus_host), the fused de-emphasis kernel
-     (csrc/deemphasis.cu, nvcc) and the two PVQ leaf kernels
-     (csrc/pvq_leaves.cu, nvcc), each source with its build time;
+     (csrc/deemphasis.cu, nvcc), the two PVQ leaf kernels
+     (csrc/pvq_leaves.cu), the band assembly kernel
+     (csrc/band_assembly.cu) and the comb filter kernel
+     (csrc/comb_filter.cu), each source with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -46,13 +48,44 @@ thing if any module of mousiki_tpu is loaded):
      entries its leaves read counted once, against integer or float
      operations over the fp32 peak), the plain version's device time and
      CUDA-event times of a call of both;
+ 3c. the decode step's band assembly (ops/band_assembly.py, P3 of the
+     executor, one launch a step) and comb filter
+     (ops/synthesis.comb_filter_batched, two launches a step) against
+     their plain versions on the card: (a) the band assembly on the
+     executor calls of CeltStreamPipeline(256, use_plan=True) on the
+     golden stereo streams under the serving profile (frames 0, 4 and
+     11: the anti-collapse, noise fills) and of OpusStreamPipeline(256,
+     channels=1) on the mono mix (frames 0 and 4), on the direct fallback
+     of a tight profile ((60, 20, 2), 2, 8), and on plans of 2.5, 5 and
+     10 ms frames (LM 0-2: the n1 sign path, the N = 2 butterfly),
+     stereo and mono, encoded on the card by CeltEncodePipeline from the
+     golden PCM: the X plane within 1e-5 (the largest error and the
+     values whose float32 rounding differs printed); (b) the comb filter
+     on those steps' decode memory and on seeded rows
+     (comb_cases.comb_rows: periods 15-1022, tapsets 0-2, the same
+     filter before and after, g1 = 0, g0 = g1 = 0) at every frame size,
+     both calls of a frame: each row within 4 float32 ulps of its peak
+     magnitude, skipped rows and the samples after the blend where g1 =
+     0 bit for bit; (c) at every path's (S, C), each kernel's device time
+     of a step's launches (torch.profiler; the band assembly with float32
+     and with float64 operators), its bound (the bytes the launch must
+     move, the operator blocks its calls read counted once, over HBM
+     bandwidth, against float64 operations over 34 TFLOP/s for the band
+     assembly, float32 operations over the fp32 peak for the comb
+     filter), the plain version's device time and CUDA-event times of a
+     call of both; the lockstep steps' own calls are checked and timed in
+     phases 22 and 26; at the end, every frame size a path's executor
+     ran is among those checked here (no path of this script runs LM
+     0-2);
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
      launched once a step by the path itself (launch counts reset just
-     before), each leaf kernel at most once a tier a step (on this and
-     every other plan path below: phases 7, 13b, 22, 23, 25 and 26's
-     lockstep probe);
+     before), each leaf kernel at most once a tier a step, the band
+     assembly kernel once and the comb filter kernel twice a step (on
+     this and every other plan path below: phases 7, 13b, 22, 23, 25 and
+     26's lockstep probe; the comb filter alone on the non-plan paths of
+     phases 19 and 26's batch decode);
   5. loss: 256 streams with ~10% seeded packet loss, the first 8 streams
      against the port run on the CPU (5e-3 on lost and just-recovered
      frames, 2e-4 elsewhere); the batch check: the same 256 streams as
@@ -129,7 +162,7 @@ thing if any module of mousiki_tpu is loaded):
      steps (kernel launches, the leaf kernels' among them, device busy
      time, host time by stage) of both decoders, the device-SILK lane,
      one encode step and one frame of each quantizer; the CELT step at
-     S = 256 within 5,400 launches and the mixed step within 3,000;
+     S = 256 within 700 launches and the mixed step within 700;
  15. neural concealment: BatchedDeepRecovery(64) with the port's seeded
      synthetic models, 5 conceal calls of 2 frames on bench.py's features
      (default_rng(0), (64, 2, 20) * 0.3), against the same class on the
@@ -186,7 +219,9 @@ thing if any module of mousiki_tpu is loaded):
      (device-only trace: kernels, device busy time) of each width; the
      plan emission's three walk launches of the first step (its (S x CAP)
      planes, kept as it ran) again through the walk kernel, iy equal to
-     the plain walk, and timed as in phase 3b (the same for the lockstep
+     the plain walk, and timed as in phase 3b, and the first step's band
+     assembly and comb filter calls through their kernels against the
+     plain versions and timed as in phase 3c (the same for the lockstep
      probe of phase 26);
  23. the stream mesh (parallel/streaming.py): every card when there are
      two or more, else two shards on the one card
@@ -242,7 +277,9 @@ each path's shape, every number of a row measured at that shape, the
 device time with the input in L2 as the path leaves it and with L2
 evicted; for each leaf kernel, one row for each path that runs it, its
 numbers those of a step's launches at the path's width: the executor's
-three, and on the lockstep paths the plan emission's three walks); the last
+three, and on the lockstep paths the plan emission's three walks; for the
+band assembly and the comb filter, one row for each path that runs them,
+a step's launches at the path's width); the last
 line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
@@ -270,12 +307,14 @@ import torch
 import batch_stages
 from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
                             load_mono_mix, load_stereo_celt)
+from comb_cases import comb_calls, comb_rows
 from leaf_cases import synthetic_leaves
-from mousiki_tpu_torch._device import require_cuda
+from mousiki_tpu_torch._device import operator64, require_cuda
 from mousiki_tpu_torch.ops import _build
+from mousiki_tpu_torch.ops import band_assembly as band_asm
 from mousiki_tpu_torch.ops import deemphasis as deemph
 from mousiki_tpu_torch.ops import pvq_leaves as pvq
-from mousiki_tpu_torch.ops._tables import U_K, U_N
+from mousiki_tpu_torch.ops._tables import U_K, U_N, plan_combo_mats_np
 from mousiki_tpu_torch import bench, dred, quality
 from mousiki_tpu_torch.hostcodec.bitstream.repacketizer import \
     opus_packet_unpad
@@ -305,6 +344,10 @@ KERNEL_REL_TOL = 1e-4
 # NVIDIA H100 SXM data sheet peaks (dense, no sparsity, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# float64 (the band assembly's products): the data sheet's FP64 peak, on
+# the tensor cores (34e12 outside them, where the kernel runs them); the
+# bound is the least time the card could take
+FP64_FLOPS = 67e12
 S_MAIN, S_WIDE = 256, 1024      # streams of the main paths / the wide timing
 S_PYHOST = 32                   # streams of the Python-host CELT path
 LOCKSTEP_FRAMES = 2             # frames a width of the lockstep phase
@@ -360,10 +403,45 @@ LEAF_KERNELS = {
     "pvq_leaf_values": ("mousiki_tpu/ops/band_exec_jax.py:280",
                         "pvq_leaf_values_kernel"),
 }
+# the band assembly and the comb filter, the kernels a decode step
+# launches once (the executor's P3) and twice (its synthesis): the
+# reference's loop, the kernel's symbol, the source
+STEP_KERNELS = {
+    "band_assembly": ("mousiki_tpu/ops/band_exec_jax.py:514",
+                      "band_assembly_kernel",
+                      "mousiki_tpu_torch/csrc/band_assembly.cu"),
+    "comb_filter": ("mousiki_tpu/ops/synthesis_jax.py:181",
+                    "comb_filter_kernel",
+                    "mousiki_tpu_torch/csrc/comb_filter.cu"),
+}
+KERNEL_SYMBOLS = {name: v[1] for name, v in (*LEAF_KERNELS.items(),
+                                             *STEP_KERNELS.items())}
+# the band assembly against its plain version on the card: both compute
+# in float64 op by op and differ only in the order of a product's or a
+# sum's terms, so the X plane agrees to float64 round-off (a float32 step
+# would miss it by ~1e-8; the plain version's bar against the JAX package
+# on the CPU, 1e-5 in tests/test_torch_band_exec.py, is f32 round-off)
+ASSEMBLY_TOL = 1e-12
+ASSEMBLY_FRAMES = (0, 4, 11)    # golden stereo frames of the check
+MIXED_FRAMES = (0, 4)           # mono mix frames of the check
+# tests/test_torch_band_exec.py's tight profile: streams whose leaves
+# overflow it fall back to the direct decoder
+TIGHT_PROFILE = ((60, 20, 2), 2, 8)
+SHORT_FRAMES = (120, 240, 480)  # LM 0-2, encoded on the card for 3c
+# the comb filter against its plain version: a row within this many
+# float32 ulps of its peak magnitude (the sum of a sample's ten taps
+# rounds in another order)
+COMB_ULPS = 4
 # the profiled steps of phase 14 at S = 256, at most (28,448 and 26,002
-# before the leaf stage ran as two kernels a tier)
-MAX_STEP_LAUNCHES = {"S256": 5400, "mixed_S256": 3000}
-LEAF_LAUNCHES: dict = {}        # path -> {kernel: launches in its run}
+# before the leaf stage ran as two kernels a tier; 5,112 and 2,666
+# before the band assembly and the comb filter did)
+MAX_STEP_LAUNCHES = {"S256": 700, "mixed_S256": 700}
+PATH_LAUNCHES: dict = {}        # path -> {kernel: launches in its run}
+# lockstep path -> {kernel: times of its first step's own call(s)}
+OWN_STEP_ROWS: dict = {}
+# the _device_ms measurements timed with CUDA events, not the profiler
+EVENT_TIMED: list = []
+FRAMES_DECODED: set = set()     # frame sizes the paths' executors ran
 # lockstep path -> the times of its plan emission's walk launches a step
 EMISSION_WALK: dict = {}
 RESULTS: dict = {}
@@ -410,17 +488,23 @@ def _timed(fn):
 
 
 def phase_build():
-    """g++ for the three host libraries and nvcc for the two kernel
+    """g++ for the three host libraries and nvcc for the four kernel
     sources, started together."""
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         hosts = {name: pool.submit(_timed, partial(_build.build_host, name))
                  for name in _build.HOST_LIBS}
         kernel = pool.submit(_timed, deemph.build_kernel)
         leaves = pool.submit(_timed, pvq.build_kernel)
+        assembly = pool.submit(_timed, band_asm.build_kernel)
+        comb = pool.submit(_timed, synthesis.build_comb_kernel)
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
             leaf_kernels="csrc/pvq_leaves.cu",
             leaf_kernels_seconds=leaves.result(),
+            band_assembly="csrc/band_assembly.cu",
+            band_assembly_seconds=assembly.result(),
+            comb_filter="csrc/comb_filter.cu",
+            comb_filter_seconds=comb.result(),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
 
@@ -444,16 +528,17 @@ def _device_ms(fn, reps: int = 20, match: str | None = None,
     kernels it runs (those whose name holds `match`, if given), under
     torch.profiler; apart from the host time between launches that CUDA
     events also count. `between` runs before each call, unmeasured when
-    `match` leaves its kernels out. The profiler now and then drops a
-    kernel event, so the time is the mean kernel duration times the
+    `match` leaves its kernels out. The profiler now and then drops
+    kernel events, so the time is the mean kernel duration times the
     kernels a call runs; a window in which it saw under half of them is
-    measured again, up to six windows (one run saw none in three windows
-    in a row)."""
+    measured again. After three such windows (late in a run, after
+    phases of a million launches, it has seen none for six windows in a
+    row) the calls are timed with CUDA events instead (_event_ms)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    for window in range(6):
+    for window in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -465,13 +550,46 @@ def _device_ms(fn, reps: int = 20, match: str | None = None,
               if ev.device_type == cuda
               and (match is None or match in ev.name)]
         if len(us) >= reps // 2:
-            break
+            per_call = max(1, round(len(us) / reps))
+            return sum(us) / len(us) * per_call / 1e3
         print(f"[profiler] window {window}: {len(us)} kernels seen in "
               f"{reps} calls; measuring again", flush=True)
-    check(len(us) >= reps // 2,
-          f"profiler saw {len(us)} kernels in {reps} calls")
-    per_call = max(1, round(len(us) / reps))
-    return sum(us) / len(us) * per_call / 1e3
+    ms, queued = _event_ms(fn, reps, between)
+    print(f"[profiler] timed with CUDA events instead: {ms} ms a call "
+          f"(calls queued behind a sleeping card: {queued})", flush=True)
+    EVENT_TIMED.append(dict(match=match, ms=ms, queued=queued))
+    return ms
+
+
+def _event_ms(fn, reps: int, between=None) -> tuple[float, bool]:
+    """Mean time on the card of a call of `fn` (all of its kernels) by
+    CUDA events around each call, the calls queued behind a sleeping
+    card so that they run back to back, without the host's gaps; the
+    sleep is lengthened until the host has queued every call before the
+    card wakes. Returns (ms, queued in time); a `fn` that waits for the
+    card never is, and its time then holds the host's gaps."""
+    cycles = 1 << 24                    # ~8 ms at the H100's clock
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        woke = torch.cuda.Event()
+        woke.record()
+        pairs = []
+        for _ in range(reps):
+            if between is not None:
+                between()
+            pairs.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            pairs[-1][0].record()
+            fn()
+            pairs[-1][1].record()
+        queued = not woke.query()
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in pairs) / reps
+        if queued:
+            break
+        cycles *= 8
+    return ms, queued
 
 
 def bound_ms(S: int, C: int, N: int) -> tuple[float, str, int]:
@@ -538,36 +656,55 @@ def _reset_launches() -> None:
     """Every kernel's launch count to 0, just before a path's run."""
     deemph.reset_launches()
     pvq.reset_launches()
+    band_asm.reset_launches()
+    synthesis.reset_launches()
 
 
-def _leaf_counts() -> dict:
+def _kernel_counts() -> dict:
+    """The launch counts of the kernels a decode step runs besides the
+    de-emphasis: the leaf stage's, the band assembly's and the comb
+    filter's."""
     return {"cwrs_walk": pvq.cwrs_walk_launches,
-            "pvq_leaf_values": pvq.pvq_leaf_values_launches}
+            "pvq_leaf_values": pvq.pvq_leaf_values_launches,
+            "band_assembly": band_asm.band_assembly_launches,
+            "comb_filter": synthesis.comb_filter_launches}
 
 
-def _leaf_launches(path: str, steps: int, got=None, after_each=None,
-                   calls_a_step: int = 1, walk_sites: int = 1) -> dict:
-    """The leaf kernels' launches `got` (default: the counts now) in a
+def _path_launches(path: str, steps: int, got=None, after_each=None,
+                   calls_a_step: int = 1, walk_sites: int = 1,
+                   executor: bool = True) -> dict:
+    """The step kernels' launches `got` (default: the counts now) in a
     path's run of `steps` steps (counts reset just before it), kept for
-    the kernels line: each kernel launched, and at most once a tier in
-    each step and each of its `calls_a_step` executor calls (mesh
+    the kernels line: each leaf kernel launched, and at most once a tier
+    in each step and each of its `calls_a_step` executor calls (mesh
     shards), the walk in each of its `walk_sites` (the lockstep step
-    walks in its plan emission too), counted after each step where
-    `after_each` holds the counts, else over the run."""
-    got = dict(_leaf_counts() if got is None else got)
+    walks in its plan emission too); the band assembly exactly once and
+    the comb filter exactly twice in each step and call; counted after
+    each step where `after_each` holds the counts, else over the run. A
+    path without the plan executor (executor=False: the non-plan
+    decoders) is held to the comb filter's alone."""
+    got = dict(_kernel_counts() if got is None else got)
+    if not executor:
+        got = {"comb_filter": got["comb_filter"]}
     most = {"cwrs_walk": 3 * calls_a_step * walk_sites,
             "pvq_leaf_values": 3 * calls_a_step}
+    exact = {"band_assembly": calls_a_step, "comb_filter": 2 * calls_a_step}
     for name, n in got.items():
-        check(n > 0, f"{path}: {name} never launched")
         if after_each is None:
             per = [n / steps]
         else:
             seen = [0] + [c[name] for c in after_each]
             per = [b - a for a, b in zip(seen, seen[1:])]
+        if name in exact:
+            check(all(x == exact[name] for x in per),
+                  f"{path}: {name} launches a step {per}: {exact[name]} "
+                  f"expected")
+            continue
+        check(n > 0, f"{path}: {name} never launched")
         check(max(per) <= most[name],
               f"{path}: {name} launches a step {per}: at most "
               f"{most[name]} expected")
-    LEAF_LAUNCHES[path] = got
+    PATH_LAUNCHES[path] = got
     return got
 
 
@@ -671,14 +808,15 @@ def values_work(active, n, k, b, spread, nmax: int) -> tuple[int, int]:
     return nbytes, flops
 
 
-def _kernel_times(name, fn, plain, nbytes: int, ops: int) -> dict:
+def _kernel_times(name, fn, plain, nbytes: int, ops: int,
+                  peak: float = FP32_FLOPS) -> dict:
     """One kernel's device time a launch (torch.profiler), its bound
-    (bytes over HBM bandwidth against operations over the fp32 peak),
-    the plain version's device time and CUDA-event times of a call of
-    both."""
+    (bytes over HBM bandwidth against operations over `peak`, the fp32
+    peak by default), the plain version's device time and CUDA-event
+    times of a call of both."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
-    ms = _device_ms(fn, match=LEAF_KERNELS[name][1])
+    t_ops = ops / peak * 1e3
+    ms = _device_ms(fn, match=KERNEL_SYMBOLS[name])
     return dict(ms=ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, operations=ops,
@@ -830,6 +968,392 @@ def phase_leaf_kernels(dev, streams, widths):
     return table
 
 
+# ------------------------------------ band assembly and comb filter (3c)
+
+def _cloned(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, dict):
+        return {k: _cloned(t) for k, t in v.items()}
+    return v
+
+
+@contextlib.contextmanager
+def _kept_calls(module, attr: str, limit: int):
+    """Keep copies of the arguments of the first `limit` calls of
+    module.attr made inside (tensors, and dicts of them, cloned before
+    the call runs): a list of (args, kwargs)."""
+    calls = []
+    fn = getattr(module, attr)
+
+    def keep(*args, **kwargs):
+        if len(calls) < limit:
+            calls.append((tuple(_cloned(a) for a in args),
+                          {k: _cloned(v) for k, v in kwargs.items()}))
+        return fn(*args, **kwargs)
+
+    setattr(module, attr, keep)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+@contextlib.contextmanager
+def _step_calls():
+    """The first band assembly call and the first two comb filter calls
+    (one decode step's) made inside."""
+    with _kept_calls(band_exec, "band_assembly", 1) as assembled, \
+            _kept_calls(synthesis, "comb_filter_batched", 2) as combed:
+        yield assembled, combed
+
+
+def _record_frames() -> None:
+    """From now on, keep the frame size of every band assembly call."""
+    fn = band_exec.band_assembly
+
+    def recorded(p, X, mats, **kw):
+        FRAMES_DECODED.add(kw["frame"])
+        return fn(p, X, mats, **kw)
+
+    band_exec.band_assembly = recorded
+
+
+_STACKS: dict = {}
+
+
+def _stacks(frame: int, dev):
+    """The plain version's operators on the card: the (21, NC, NBMAX,
+    NBMAX) float64 stacks."""
+    if frame not in _STACKS:
+        _STACKS[frame] = tuple(operator64(a, dev)
+                               for a in plan_combo_mats_np(frame))
+    return _STACKS[frame]
+
+
+def _gapped(t):
+    """t's values in a view whose streams lie one element further apart
+    than its rows' length, as the plan arena's planes and a column of the
+    host's flag plane do."""
+    wide = torch.zeros((t.shape[0], t[0].numel() + 1), dtype=t.dtype,
+                       device=t.device)
+    wide[:, :-1] = t.reshape(t.shape[0], -1)
+    return wide[:, :-1].view(t.shape)
+
+
+def _assembly_check(label, call):
+    """The band assembly kernel against its plain version on one call's
+    arguments (the executor's planes and X plane): X within
+    ASSEMBLY_TOL, and equal when the planes' streams lie further apart.
+    Returns [streams, channels, frame, the largest error, the values
+    whose float32 rounding differs]."""
+    (p, X, mats), kw = call
+    got = band_asm.band_assembly(p, X.clone(), mats, **kw)
+    want = band_asm.band_assembly_reference(
+        p, X.clone(), _stacks(kw["frame"], X.device), **kw)
+    check(bool(torch.isfinite(got).all()), f"{label}: X not finite")
+    err = (got - want).abs().max().item()
+    check(err <= ASSEMBLY_TOL, f"{label}: band_assembly {err} from the plain "
+          f"version (bar {ASSEMBLY_TOL})")
+    gapped = band_asm.band_assembly(
+        {k: _gapped(p[k]) for k in band_asm.PLANE_KEYS}, X.clone(), mats,
+        **kw)
+    check(torch.equal(gapped, got), f"{label}: band_assembly differs on "
+          f"planes whose streams lie further apart")
+    flips = int((got.float() != want.float()).sum())
+    return [X.shape[0], kw["channels"], kw["frame"], err, flips]
+
+
+def _comb_check(label, call):
+    """The comb filter kernel against its plain version on one call's
+    arguments: each row within COMB_ULPS float32 ulps of its peak
+    magnitude, equal when the planes' streams lie further apart, the rows
+    it skips (g0 = g1 = 0) and, where g1 = 0, the
+    samples after the blend bit for bit. Returns [the largest error, in
+    ulps of the row's peak]."""
+    (consts, buf, pos, N, t0, t1, g0, g1, tap0, tap1), _ = call
+    planes = (t0, t1, g0, g1, tap0, tap1)
+    got = synthesis.comb_filter_batched(consts, buf.clone(), pos, N, *planes)
+    want = synthesis.comb_filter_batched_reference(consts, buf.clone(), pos,
+                                                   N, *planes)
+    gapped = synthesis.comb_filter_batched(consts, buf.clone(), pos, N,
+                                           *map(_gapped, planes))
+    check(torch.equal(gapped, got), f"{label}: comb_filter differs on "
+          f"planes whose streams lie further apart")
+    diff = (got - want).abs()
+    peak = want.abs().amax(dim=2, keepdim=True)
+    ulp = 2.0 ** -23 * peak
+    check(bool((diff <= COMB_ULPS * ulp).all()),
+          f"{label}: comb_filter beyond {COMB_ULPS} ulps of a row's peak")
+    skip = (g0 == 0) & (g1 == 0)
+    check(torch.equal(got[skip], buf[skip]),
+          f"{label}: comb_filter changed a row it skips")
+    same = (g0 == g1) & (t0 == t1) & (tap0 == tap1)
+    stop = pos + min(synthesis.OVERLAP, N)
+    tail = (g1 == 0) & ~same
+    check(torch.equal(got[tail][..., stop:], buf[tail][..., stop:]),
+          f"{label}: comb_filter ran past the blend where g1 = 0")
+    ulps = (diff / ulp.clamp(min=1e-30)).max().item()
+    return [diff.max().item(), ulps]
+
+
+def assembly_work(p, kw) -> tuple[int, int]:
+    """(bytes, operations) of the band assembly on these planes: the X
+    plane's bins of bands start..end-1 read and written once (float64),
+    each plane read once, each operator block some call reads once
+    (float32); 2 n_b^2 float64 operations for the post product of every
+    call of a band with n_b > 1 and for the pre product where a live fold
+    fill reads it (the elementwise work is not counted)."""
+    C, lm = kw["channels"], kw["lm"]
+    q = {k: p[k].cpu().numpy() for k in band_asm.PLANE_KEYS}
+    S = q["call_active"].shape[0]
+    widths = band_asm._band_widths(lm)
+    bins = sum(widths[kw["start"]:kw["end"]])
+    nbytes = 2 * S * C * bins * 8 + sum(v.nbytes for v in q.values())
+    fold = ((q["fill_active"] & q["fill_fold"]).any(axis=3)
+            & q["call_active"])
+    flops, blocks = 0, set()
+    for i in range(kw["start"], kw["end"]):
+        n_b = widths[i]
+        if n_b == 1:
+            continue
+        post = q["call_post"][:, i, :C]
+        pre = q["call_pre"][:, i, :C][fold[:, i, :C]]
+        flops += 2 * n_b * n_b * (post.size + pre.size)
+        blocks |= {("post", i, int(c)) for c in np.unique(post)}
+        blocks |= {("pre", i, int(c)) for c in np.unique(pre)}
+    nbytes += sum(4 * widths[i] ** 2 for _, i, _ in blocks)
+    return nbytes, flops
+
+
+def comb_work(call) -> tuple[int, int]:
+    """(bytes, operations) of the comb filter on one call: for each row
+    of an active stream, the decode memory its taps reach ([pos - max(t0,
+    t1) - 2, pos + the samples it changes)) read once and the samples it
+    changes written once (a row with g1 = 0 stops after the blend),
+    the six parameters, the window and the tap gains read once; 32
+    float32 operations a changed sample (the window's square, 1 - f, ten
+    weights, ten products, ten sums)."""
+    (consts, buf, pos, N, *planes), _ = call
+    t0, t1, g0, g1, tap0, tap1 = (v.cpu().numpy() for v in planes)
+    S, C, _ = buf.shape
+    active = (g0 != 0) | (g1 != 0)
+    same = (g0 == g1) & (t0 == t1) & (tap0 == tap1)
+    blend = np.minimum(np.where(same, 0, synthesis.OVERLAP), N)
+    changed = np.where(g1 != 0, N, blend) * active
+    reach = np.maximum(t0, t1).astype(np.int64) + 2
+    span = (pos + changed - np.maximum(pos - reach, 0)) * active
+    nbytes = (4 * C * int(span.sum() + changed.sum()) + 24 * S
+              + 4 * (synthesis.OVERLAP + 9))
+    return nbytes, 32 * C * int(changed.sum())
+
+
+def _assembly_times(call):
+    """The band assembly's times on one call's arguments: the kernel, the
+    plain version, the bound (float64 operations at FP64_FLOPS)."""
+    (p, X, mats), kw = call
+    Xw = torch.empty_like(X)
+    row = _kernel_times(
+        "band_assembly",
+        lambda: band_asm.band_assembly(p, Xw.copy_(X), mats, **kw),
+        lambda: band_asm.band_assembly_reference(
+            p, Xw.copy_(X), _stacks(kw["frame"], X.device), **kw),
+        *assembly_work(p, kw), peak=FP64_FLOPS)
+    row["shape"] = [X.shape[0], kw["channels"], kw["frame"]]
+    return row
+
+
+def _comb_times(calls):
+    """The comb filter's times over one step's calls, summed: each call's
+    kernel and plain version on copies of its decode memory."""
+    rows = []
+    for call in calls:
+        (consts, buf, pos, N, *planes), _ = call
+        bw = torch.empty_like(buf)
+        rows.append(_kernel_times(
+            "comb_filter",
+            lambda: synthesis.comb_filter_batched(consts, bw.copy_(buf), pos,
+                                                  N, *planes),
+            lambda: synthesis.comb_filter_batched_reference(
+                consts, bw.copy_(buf), pos, N, *planes),
+            *comb_work(call)))
+        rows[-1]["shape"] = [*buf.shape[:2], N]
+    out = {key: sum(r[key] for r in rows)
+           for key in ("ms", "bound_ms", "plain_ms", "call_ms",
+                       "plain_call_ms", "bytes", "operations")}
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["shape"] = [r["shape"] for r in rows]
+    return out
+
+
+def _own_step_rows(path, assembled, combed):
+    """A lockstep path's first step: its own band assembly call and comb
+    filter calls through the kernels against the plain versions, and
+    their times, kept for the path's kernels rows."""
+    check(len(assembled) == 1 and len(combed) == 2,
+          f"{path}: {len(assembled)} band assembly and {len(combed)} comb "
+          f"filter calls seen in a step")
+    err = _assembly_check(f"{path} band assembly", assembled[0])
+    ulps = [_comb_check(f"{path} comb call {k}", c)
+            for k, c in enumerate(combed)]
+    rows = {"band_assembly": dict(_assembly_times(assembled[0]),
+                                  max_abs_err=err[3], f32_flips=err[4]),
+            "comb_filter": dict(_comb_times(combed),
+                                max_abs_err=max(u[0] for u in ulps),
+                                max_ulps_of_peak=max(u[1] for u in ulps))}
+    OWN_STEP_ROWS[path] = rows
+    say(f"step_kernels_{path}", **rows)
+
+
+def _executor_call(dev, arenas, aux, channels: int, frame: int):
+    """One execute_packed on the card over a host batch's arenas (under
+    the plan profile they were made with); returns its band assembly
+    call's arguments and the streams that fell back to the direct
+    decoder."""
+    S = aux["x_direct"].shape[0]
+    backing = torch.from_numpy(arenas["backing"].copy()).to(dev)
+    p, *_ = band_exec.unpack_plan_arenas(
+        *band_exec.split_backing(backing, channels=channels, frame=frame,
+                                 n_streams=S), channels=channels, frame=frame)
+    lm = {120: 0, 240: 1, 480: 2, 960: 3}[frame]
+    with _kept_calls(band_exec, "band_assembly", 1) as calls:
+        band_exec.execute_packed(
+            p, torch.from_numpy(aux["x_direct"].copy()).to(dev),
+            plan_combo_mats(channels, frame, dev), channels=channels,
+            frame=frame, lm=lm, start=0, end=21)
+    return calls[0], int(p["direct"].sum())
+
+
+def _encoded_arenas(dev, streams, S, C, frame, frames=3):
+    """Plan arenas of frame size `frame` (LM 0-2): the golden stereo PCM
+    (stream s plays fixture s % 3; mono: the channels' mean) encoded on
+    the card by CeltEncodePipeline, decoded by the native host stage.
+    Returns the last frame's (arenas, aux)."""
+    bitrate = ENCODE_BITRATE if C == 2 else ENCODE_BITRATE // 2
+    enc = CeltEncodePipeline(S, C, bitrate, frame_size=frame, device=dev)
+    host = NativeCeltHostBatch(S, channels=C, disable_inv=C == 1)
+    for f in range(frames):
+        pcm = np.stack([streams[s % len(streams)].pcm[f * frame:
+                                                      (f + 1) * frame]
+                        for s in range(S)]).astype(np.float32)
+        if C == 1:
+            pcm = pcm.mean(axis=2, keepdims=True)
+        arenas, aux, _ = host.decode_plan_arenas(enc.step(pcm), frame)
+        check(bool((aux["rcs"] >= 0).all()),
+              f"host decode of encoded frame {f} at {frame}")
+    return arenas, aux
+
+
+def _rows_at(call, S, period, assembly: bool):
+    """One call's arguments at S streams: stream s takes row s % period
+    (the golden fixture it plays)."""
+    args, kw = call
+    rows = torch.arange(S) % period
+
+    def tile(v):
+        if isinstance(v, dict):
+            return {k: tile(t) for k, t in v.items()}
+        if isinstance(v, torch.Tensor) and v.dim() > 0:
+            return v[rows.to(v.device)].contiguous()
+        return v
+
+    if assembly:
+        p, X, mats = args
+        return (tile(p), tile(X), mats), kw
+    consts, *rest = args
+    return (consts, *(tile(v) for v in rest)), kw
+
+
+def phase_step_kernels(dev, streams, mono, widths):
+    """The band assembly and comb filter kernels against their plain
+    versions on the card: (a) the band assembly on the plan decoders' own
+    calls (golden stereo at S = 256 under the serving profile, frames 0,
+    4 and 11; the mixed path's mono arenas, frames 0 and 4), the tight
+    profile's direct fallback, and plans of 2.5, 5 and 10 ms frames
+    encoded on the card, stereo and mono; (b) the comb filter on those
+    steps' decode memory and on seeded rows (comb_cases.comb_rows) at
+    every frame size; (c) the times and bounds of a step's launches of
+    each at every width in `widths` ({kernel: {(S, C)}}). Returns {kernel:
+    {(S, C): row}}."""
+    assembled, combed = {}, {}
+    pipe = CeltStreamPipeline(S_MAIN, channels=2, use_plan=True, device=dev)
+    for f in range(max(ASSEMBLY_FRAMES) + 1):
+        with _step_calls() as (a, c):
+            pipe.step(frame_batch(streams, S_MAIN, f), FRAME)
+        if f in ASSEMBLY_FRAMES:
+            assembled[f"celt_frame{f}"] = a[0]
+            combed.update({f"celt_frame{f}_call{k}": x
+                           for k, x in enumerate(c)})
+    del pipe
+    mixed = OpusStreamPipeline(S_MAIN, channels=1, device=dev)
+    for f in range(max(MIXED_FRAMES) + 1):
+        with _step_calls() as (a, c):
+            mixed.step(frame_batch(mono, S_MAIN, f, packets=True))
+        if f in MIXED_FRAMES:
+            assembled[f"mixed_frame{f}"] = a[0]
+            combed.update({f"mixed_frame{f}_call{k}": x
+                           for k, x in enumerate(c)})
+    del mixed
+    set_plan_profile(*TIGHT_PROFILE)
+    try:
+        host = NativeCeltHostBatch(S_MAIN)
+        arenas, aux, _ = host.decode_plan_arenas(
+            frame_batch(streams, S_MAIN, 0), FRAME)
+        check(bool((aux["rcs"] >= 0).all()), "host decode, tight profile")
+        assembled["tight_frame0"], direct = _executor_call(dev, arenas, aux,
+                                                           2, FRAME)
+    finally:
+        set_plan_profile(*SERVING_PROFILE)
+    check(direct > 0, "the tight profile sent no stream to the direct "
+          "decoder")
+    for C in (2, 1):
+        for n in SHORT_FRAMES:
+            arenas, aux = _encoded_arenas(dev, streams, S_MAIN, C, n)
+            assembled[f"encoded_c{C}_n{n}"], _ = _executor_call(
+                dev, arenas, aux, C, n)
+    rng = np.random.default_rng(14)
+    for C in (2, 1):
+        for n in (*SHORT_FRAMES, FRAME):
+            consts = synthesis.make_consts(n, dev)
+            for k, (pos, N) in enumerate(comb_calls(n)):
+                d = {key: torch.as_tensor(v, device=dev)
+                     for key, v in comb_rows(rng, S_MAIN, C).items()}
+                combed[f"seeded_c{C}_n{n}_call{k}"] = ((
+                    consts, d["buf"], pos, N, d["t0"], d["t1"], d["g0"],
+                    d["g1"], d["tap0"], d["tap1"]), {})
+    checked = {label: _assembly_check(label, call)
+               for label, call in assembled.items()}
+    comb_errs = {label: _comb_check(label, call)
+                 for label, call in combed.items()}
+    worst = max(v[3] for v in checked.values())
+    comb_worst = max(v[0] for v in comb_errs.values())
+    comb_ulps = max(v[1] for v in comb_errs.values())
+    say("step_kernels", assembly_cases=checked, assembly_worst_err=worst,
+        assembly_bar=ASSEMBLY_TOL, tight_profile_direct_streams=direct,
+        comb_cases=comb_errs, comb_worst_abs_err=comb_worst,
+        comb_worst_ulps_of_peak=comb_ulps, comb_bar_ulps=COMB_ULPS)
+    base = {2: ("celt_frame4", 3), 1: ("mixed_frame4", len(mono))}
+    table = {"band_assembly": {}, "comb_filter": {}}
+    for S, C in sorted(widths["band_assembly"]):
+        label, period = base[C]
+        call = assembled[label]
+        row = _assembly_times(call if S == S_MAIN
+                              else _rows_at(call, S, period, True))
+        row.update(max_abs_err=worst)
+        say(f"assembly_times_S{S}_C{C}", **row)
+        table["band_assembly"][(S, C)] = row
+    for S, C in sorted(widths["comb_filter"]):
+        label, period = base[C]
+        calls = [combed[f"{label}_call{k}"] for k in range(2)]
+        row = _comb_times(calls if S == S_MAIN else
+                          [_rows_at(c, S, period, False) for c in calls])
+        row.update(max_abs_err=comb_worst, max_ulps_of_peak=comb_ulps)
+        say(f"comb_times_S{S}_C{C}", **row)
+        table["comb_filter"][(S, C)] = row
+    return table
+
+
 def phase_main_path(dev, streams):
     S, F = S_MAIN, 12
     pipe = CeltStreamPipeline(S, channels=2, use_plan=True, device=dev)
@@ -840,7 +1364,7 @@ def phase_main_path(dev, streams):
         pcm = pipe.step(frame_batch(streams, S, f), FRAME)
         torch.cuda.synchronize()
         launches.append(deemph.deemphasis_launches)
-        leaf_after.append(_leaf_counts())
+        leaf_after.append(_kernel_counts())
         got = pcm.cpu().numpy()
         check(got.shape == (S, FRAME, 2), f"pcm shape {got.shape}")
         check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
@@ -852,14 +1376,14 @@ def phase_main_path(dev, streams):
     n = deemph.deemphasis_launches
     check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
           f"deemphasis launches per step {launches}: one a step expected")
-    leaf = _leaf_launches("celt", F, after_each=leaf_after)
+    leaf = _path_launches("celt", F, after_each=leaf_after)
     # the arena is staged in page-locked memory, so its copy is asynchronous
     arena = pipe._native._plan_db[FRAME][1][0][0]["backing"]
     pinned = torch.from_numpy(arena).is_pinned()
     check(pinned, "the plan arena is not in page-locked memory")
     say("main_path", streams=S, frames=F, worst_abs_err_vs_golden=worst,
         bar=GOLDEN_TOL, deemphasis_launches=n,
-        launches_after_each_step=launches, leaf_kernel_launches=leaf,
+        launches_after_each_step=launches, kernel_launches=leaf,
         arena_pinned=pinned)
     return n, worst
 
@@ -994,7 +1518,7 @@ def phase_mixed_main(dev, mono):
         pcm = pipe.step(frame_batch(mono, S, f, packets=True))
         torch.cuda.synchronize()
         launches.append(deemph.deemphasis_launches)
-        leaf_after.append(_leaf_counts())
+        leaf_after.append(_kernel_counts())
         got = pcm.cpu().numpy()
         check(got.shape == (S, FRAME, 1), f"mixed pcm shape {got.shape}")
         check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
@@ -1011,11 +1535,11 @@ def phase_mixed_main(dev, mono):
           "expected")
     check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
           f"deemphasis launches per mixed step {launches}: one expected")
-    leaf = _leaf_launches("mixed", F, after_each=leaf_after)
+    leaf = _path_launches("mixed", F, after_each=leaf_after)
     say("mixed_main_path", streams=S, frames=F, modes=sorted(modes),
         worst_abs_err_vs_golden=worst, bar=GOLDEN_TOL,
         deemphasis_launches=n, launches_after_each_step=launches,
-        leaf_kernel_launches=leaf)
+        kernel_launches=leaf)
     return n
 
 
@@ -1089,13 +1613,13 @@ def _profile_step(step, tag=None):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    leaf_before = _leaf_counts()
+    counts_before = _kernel_counts()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    leaf = {k: v - leaf_before[k] for k, v in _leaf_counts().items()}
+    leaf = {k: v - counts_before[k] for k, v in _kernel_counts().items()}
     launches: dict = {}
     host_ms: dict = {}
     device_us = 0.0
@@ -1118,7 +1642,7 @@ def _profile_step(step, tag=None):
     return {"launches": sum(launches.values()), "device_kernels": kernels,
             "device_busy_ms": round(device_us / 1e3, 3),
             "profiled_wall_ms": round(wall_ms, 3),
-            "leaf_kernel_launches": leaf,
+            "kernel_launches": leaf,
             "launches_by_span": launches, "host_ms_by_span": host_ms}
 
 
@@ -1485,7 +2009,7 @@ def phase_encode_quality(dev, card):
     scores = quality.score(ref16, celt, 2,
                            partial(quality.decode_celt_port, device=dev))
     launches = deemph.deemphasis_launches
-    leaf = _leaf_counts()
+    leaf = _kernel_counts()
     t_decode = time.perf_counter() - t0
     celt_rows = []
     for k, rate in enumerate(quality.CELT_RATES):
@@ -1523,14 +2047,14 @@ def phase_encode_quality(dev, card):
     frames = len(celt[0])
     say("encode_quality", card=card, celt=celt_rows, celt_tol=QUALITY_TOL,
         silk=silk_rows, silk_frames=n, silk_margin_db=ENCODE_SNR_MARGIN_DB,
-        deemphasis_launches=launches, leaf_kernel_launches=leaf,
+        deemphasis_launches=launches, kernel_launches=leaf,
         celt_frames=frames,
         celt_encode_seconds=round(t_encode, 1),
         celt_decode_score_seconds=round(t_decode, 1),
         silk_encode_seconds=round(t_silk, 1))
     check(launches == frames, f"encode quality decode: {launches} "
           f"deemphasis launches in {frames} frames: one a frame expected")
-    _leaf_launches("encode_quality", frames, got=leaf)
+    _path_launches("encode_quality", frames, got=leaf)
     return launches
 
 
@@ -1793,9 +2317,10 @@ def phase_python_host(dev, streams):
     n = deemph.deemphasis_launches
     check(all(b - a == 1 for a, b in zip([0] + launches, launches)),
           f"deemphasis launches per Python-host step {launches}")
+    steps = _path_launches("celt_python_host", F, executor=False)
     median = float(np.median(step_ms[2:]))
     say("python_host", streams=S, frames=F, worst_abs_err_vs_golden=worst,
-        bar=GOLDEN_TOL, deemphasis_launches=n,
+        bar=GOLDEN_TOL, deemphasis_launches=n, kernel_launches=steps,
         launches_after_each_step=launches, ms_per_step=median,
         ms_per_step_runs=step_ms, ms_per_stream_frame=median / S,
         realtime_x=S * 0.02 / (median / 1e3))
@@ -2054,13 +2579,14 @@ def phase_lockstep(dev, streams, mono):
                 prof = _device_trace(lambda: out.append(step(f)))
                 step_ms.append(prof["profiled_wall_ms"])
             else:
-                with _StageTimer() as stages, _emission_walks() as walks:
+                with _StageTimer() as stages, _emission_walks() as walks, \
+                        _step_calls() as (assembled, combed):
                     t = time.perf_counter()
                     out.append(step(f))
                     torch.cuda.synchronize()
                     step_ms.append(round((time.perf_counter() - t) * 1e3, 3))
             after.append(deemph.deemphasis_launches)
-            leaf_after.append(_leaf_counts())
+            leaf_after.append(_kernel_counts())
             pcm, ok = out[0]
             n_ok = int(ok.sum())
             check(n_ok == S, f"{name} frame {f}: {S - n_ok} lanes not ok")
@@ -2076,12 +2602,13 @@ def phase_lockstep(dev, streams, mono):
         check(after == list(range(1, F + 1)),
               f"{name}: deemphasis launches after each step {after}")
         # the walk runs in the plan emission and in the executor
-        leaf = _leaf_launches(name, F, after_each=leaf_after, walk_sites=2)
+        leaf = _path_launches(name, F, after_each=leaf_after, walk_sites=2)
         _emission_walk_times(name, walks)
+        _own_step_rows(name, assembled, combed)
         launches[name] = n
         say(f"lockstep_{name}", streams=S, channels=C, frames=F,
             worst_abs_err_vs_golden=worst, bar=GOLDEN_TOL,
-            deemphasis_launches=n, leaf_kernel_launches=leaf,
+            deemphasis_launches=n, kernel_launches=leaf,
             ms_per_step=step_ms[0],
             realtime_x=S * 0.02 / (step_ms[0] / 1e3),
             stage_ms_first_step=stages.ms,
@@ -2137,7 +2664,7 @@ def _mesh_against_single(name, dev, mesh, make_pipe, batch_fn, S, F, lost):
     check(launches == F * mesh.size,
           f"{name}: {launches} deemphasis launches, {F * mesh.size} "
           "expected (one a shard a step)")
-    _leaf_launches(name.replace("mesh_", "") + "_mesh", F,
+    _path_launches(name.replace("mesh_", "") + "_mesh", F,
                    calls_a_step=mesh.size)
     return got, launches, worst_clean, worst_touched
 
@@ -2262,7 +2789,7 @@ def phase_bench(dev):
         _reset_launches()
         bench.e2e_window(pipe, pays, BENCH_WINDOW)
         launches[path] = deemph.deemphasis_launches
-        _leaf_launches(path, BENCH_WINDOW)
+        _path_launches(path, BENCH_WINDOW)
         check(launches[path] == BENCH_WINDOW,
               f"{path}: {launches[path]} deemphasis launches in "
               f"{BENCH_WINDOW} steps: one a step expected")
@@ -2272,7 +2799,7 @@ def phase_bench(dev):
     r, _ = bench._gate_one(pays[:n_gate], fx["synthetic"]["ref16k_quick"],
                            dev)
     launches["bench_gate"] = deemph.deemphasis_launches
-    _leaf_launches("bench_gate", n_gate)
+    _path_launches("bench_gate", n_gate)
     check(launches["bench_gate"] == n_gate,
           f"gate: {launches['bench_gate']} deemphasis launches in "
           f"{n_gate} frames: one a frame expected")
@@ -2295,6 +2822,8 @@ def _entry_batch_decode(dev):
     pkts, out = twin.run(S_EXAMPLE, device=dev)
     torch.cuda.synchronize()
     launches = deemph.deemphasis_launches
+    steps = _path_launches("example_batch_decode", len(pkts),
+                           executor=False)
     check(launches == len(pkts) == twin.N_FRAMES,
           f"batch decode: {launches} deemphasis launches in {len(pkts)} "
           "steps: one a step expected")
@@ -2310,7 +2839,7 @@ def _entry_batch_decode(dev):
     say("entry_batch_decode", streams=S_EXAMPLE, frames=len(pkts),
         packet_bytes=sum(map(len, pkts)), worst_abs_err_vs_plan=err,
         bar=GOLDEN_TOL, peak=float(np.abs(got).max()),
-        deemphasis_launches=launches)
+        deemphasis_launches=launches, kernel_launches=steps)
     return launches
 
 
@@ -2494,12 +3023,13 @@ def _entry_bench_lockstep(dev, card):
     trial of one step; against the plan pipeline's first step."""
     probe = load_script("tools/torch_bench_lockstep.py")
     _reset_launches()
-    with _emission_walks() as walks:
+    with _emission_walks() as walks, _step_calls() as (assembled, combed):
         res = probe.run(S_MAIN, device=dev, iters=1, trials=1)
     torch.cuda.synchronize()
     launches = deemph.deemphasis_launches
-    leaf = _leaf_launches("tool_bench_lockstep", 2, walk_sites=2)
+    leaf = _path_launches("tool_bench_lockstep", 2, walk_sites=2)
     _emission_walk_times("tool_bench_lockstep", walks)
+    _own_step_rows("tool_bench_lockstep", assembled, combed)
     check(launches == 2, f"lockstep probe: {launches} deemphasis launches "
           "in 2 steps: one a step expected")
     n_ok = int(res["ok"].sum())
@@ -2518,7 +3048,7 @@ def _entry_bench_lockstep(dev, card):
         first_step_s=res["first_s"], ms_per_step=res["step_ms"][0],
         realtime_x=res["realtime_x"][0], worst_abs_err_vs_plan=err,
         bar=GOLDEN_TOL, lanes_ok=n_ok, deemphasis_launches=launches,
-        leaf_kernel_launches=leaf, card=repr(card))
+        kernel_launches=leaf, card=repr(card))
     return launches
 
 
@@ -2578,6 +3108,26 @@ def main() -> int:
     shard = s_mesh // mesh.size
     leaf_table = _phase("leaf_kernels", phase_leaf_kernels, dev, streams,
                         set(LEAF_PATH_STREAMS.values()) | {shard})
+    # (S, C) of each path's decode step, for the band assembly and comb
+    # filter rows (the lockstep paths' rows time their own calls)
+    step_widths = {"celt": (S_MAIN, 2), "mixed": (S_MAIN, 1),
+                   "celt_lockstep": (S_MAIN, 2),
+                   "celt_lockstep_mono": (S_MAIN, 1),
+                   "celt_mesh": (shard, 2), "mixed_mesh": (shard, 1),
+                   "bench_e2e": (S_MAIN, 2), "bench_e2e_s1024": (S_WIDE, 2),
+                   "bench_gate": (bench.GATE_STREAMS, 2),
+                   "encode_quality": (len(quality.CELT_RATES), 2),
+                   "tool_bench_lockstep": (S_MAIN, 2),
+                   "celt_python_host": (S_PYHOST, 2),
+                   "example_batch_decode": (S_EXAMPLE, 2)}
+    no_executor = {"celt_python_host", "example_batch_decode"}
+    step_table = _phase("step_kernels", phase_step_kernels, dev, streams,
+                        mono, {
+                            "band_assembly": {w for path, w in
+                                              step_widths.items()
+                                              if path not in no_executor},
+                            "comb_filter": set(step_widths.values())})
+    _record_frames()
     n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
     _phase("loss", phase_loss, dev, streams)
     _phase("celt_modes", phase_celt_modes, dev, streams)
@@ -2667,8 +3217,36 @@ def main() -> int:
                        "bound_by")},
         # no PyTorch call decodes CWRS or applies the spreading rotation
         "library_ms": None}
-        for path, counts in LEAF_LAUNCHES.items() for name in LEAF_KERNELS]
+        for path, counts in PATH_LAUNCHES.items() for name in LEAF_KERNELS
+        if name in counts]
+    # one row for each step kernel and path that runs it: the path's
+    # launches beside the times of a step's launches at the path's width
+    # (phase 3c), or of the lockstep step's own calls (phases 22, 26)
+
+    def own_row(path, name):
+        own = OWN_STEP_ROWS.get(path)
+        return own[name] if own else step_table[name][step_widths[path]]
+
+    kernels["kernels"] += [{
+        "name": name, "route": "cuda", "source": STEP_KERNELS[name][2],
+        "replaces": STEP_KERNELS[name][0], "path": path,
+        "launches": counts[name],
+        **{key: own_row(path, name)[key]
+           for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by")},
+        # no PyTorch call assembles CELT bands or runs the comb filter
+        "library_ms": None}
+        for path, counts in PATH_LAUNCHES.items() for name in STEP_KERNELS
+        if name in counts]
+    # the frame sizes the paths decoded, all among those 3c checked
+    checked = [*SHORT_FRAMES, FRAME]
+    check(FRAMES_DECODED <= set(checked),
+          f"paths decoded frame sizes {sorted(FRAMES_DECODED)}, phase 3c "
+          f"checked {checked}")
+    say("step_kernel_frames", decoded_by_paths=sorted(FRAMES_DECODED),
+        checked=checked, lm0_2_on_paths=bool(FRAMES_DECODED - {FRAME}))
     RESULTS["kernels"] = kernels
+    say("device_ms_by_events", count=len(EVENT_TIMED), timings=EVENT_TIMED)
     say("run", seconds=round(time.perf_counter() - t_start, 1),
         **RESULTS["phase_seconds"])
     if OUT_DIR is not None:

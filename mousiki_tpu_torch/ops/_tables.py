@@ -13,6 +13,10 @@ original):
   * `fold_operator`                  <- encode_front_jax._fold_operator
                                         (returns numpy arrays here)
   * `TRANSIENT_INV_TABLE`            <- celt/encoder._TRANSIENT_INV_TABLE
+
+and the executor's torch helpers over the LCG jump tables (`lcg_tensors`,
+`lcg_at`, `as_i32`), used by the band assembly, the anti-collapse and the
+lockstep plan emission.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 from ..celt.modes import MODE
 from ..celt.plan import _post_transforms, _pre_transforms, combos_for_m
@@ -85,6 +90,28 @@ def lcg_jump() -> tuple[np.ndarray, np.ndarray]:
         a = (a * LCG_A) & 0xFFFFFFFF
         c = (c * LCG_A + LCG_C) & 0xFFFFFFFF
     return A, Cc
+
+
+@lru_cache(maxsize=None)
+def lcg_tensors(device: torch.device):
+    """lcg_jump()'s A and C as int64 tensors on `device`."""
+    A, Cc = lcg_jump()
+    return (torch.as_tensor(A.astype(np.int64), device=device),
+            torch.as_tensor(Cc.astype(np.int64), device=device))
+
+
+def lcg_at(A_J, C_J, d, seed):
+    """lcg^d(seed) mod 2^32 for u32 `seed` (int64 tensors). The 32x32-bit
+    product is split on seed's 16-bit halves so no product reaches 2^48."""
+    a = A_J[d]
+    lo = seed & 0xFFFF
+    hi = seed >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16) + C_J[d]) & 0xFFFFFFFF
+
+
+def as_i32(u):
+    """Signed reinterpretation of u32 values held in int64."""
+    return u - ((u >> 31) << 32)
 
 
 @lru_cache(maxsize=None)

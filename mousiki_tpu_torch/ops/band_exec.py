@@ -8,10 +8,11 @@ does to the signal after the symbols are known:
   P2  normalisation and PVQ spreading rotation (vq.rs exp_rotation):
       ops/pvq_leaves.py, two CUDA kernels a tier on the card (plain torch
       versions on the CPU).
-  P3  Band assembly in band order (a Python loop over the 21 bands):
-      gather from the leaf pool, fold/noise fills (counter-form LCG),
+  P3  Band assembly in band order: fold/noise fills (counter-form LCG),
       per-stream pre/post transform operators, norm-buffer upkeep, stereo
-      merge and the N == 2 butterfly.
+      merge and the N == 2 butterfly: ops/band_assembly.py, one CUDA
+      kernel a call on the card (the plain loop over the 21 bands on the
+      CPU).
   P4  anti_collapse (bands.rs:3220) with host-computed r and device LCG.
 
 uint32 arithmetic runs in int64 holding values in [0, 2^32): torch has
@@ -36,7 +37,8 @@ from .. import _device
 from ..celt import host_native
 from ..celt.modes import MODE
 from ..celt.plan import TIERS
-from ._tables import LCG_MAX, lcg_jump, plan_combo_mats_np
+from ._tables import LCG_MAX, lcg_at, lcg_tensors, plan_combo_mats_np
+from .band_assembly import band_assembly, packed_operators
 from .pvq_leaves import cwrs_walk, pvq_leaf_values
 
 _M32 = 0xFFFFFFFF
@@ -44,34 +46,23 @@ _M32 = 0xFFFFFFFF
 
 # ------------------------------------------------------------------ consts
 
-@lru_cache(maxsize=None)
-def _lcg_t(device: torch.device):
-    A, Cc = lcg_jump()
-    return (torch.as_tensor(A.astype(np.int64), device=device),
-            torch.as_tensor(Cc.astype(np.int64), device=device))
-
-
 def plan_combo_mats(channels: int, frame: int, device):
-    """Stacked per-band pre/post combo operators, identity-padded to
-    NBMAX: (21, NC, NBMAX, NBMAX) each, the reference's float32 values
-    held in float64, on `device`."""
+    """The per-band pre/post combo operators (the reference's float32
+    values) that execute_packed takes as `mats`, in the layout its band
+    assembly reads on `device`; the one place that picks the layout:
+
+      * CPU: the stacks identity-padded to NBMAX, (21, NC, NBMAX, NBMAX)
+        each, held in float64, for band_assembly_reference's gathers;
+      * CUDA: the kernel's packed float32 blocks, one 1-D tensor each
+        (band_assembly.packed_operators).
+
+    Callers hand the pair to execute_packed on the same device."""
+    dev = _device.as_device(device)
+    if dev.type == "cuda":
+        return packed_operators(frame, dev)
     pre_all, post_all = plan_combo_mats_np(frame)
-    return (_device.operator64(pre_all, device),
-            _device.operator64(post_all, device))
-
-
-def _lcg(A_J, C_J, d, seed):
-    """lcg^d(seed) mod 2^32 for u32 `seed` (int64 tensors). The 32x32-bit
-    product is split on seed's 16-bit halves so no product reaches 2^48."""
-    a = A_J[d]
-    lo = seed & 0xFFFF
-    hi = seed >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16) + C_J[d]) & _M32
-
-
-def _as_i32(u):
-    """Signed reinterpretation of u32 values held in int64."""
-    return u - ((u >> 31) << 32)
+    return (_device.operator64(pre_all, dev),
+            _device.operator64(post_all, dev))
 
 
 # ------------------------------------------------------ P3/P4: full executor
@@ -147,16 +138,12 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
     """Run S packed band plans; returns the X plane (S, channels*frame) f32.
 
     x_direct: (S, channels, frame) fallback spectra for direct streams.
-    mats: (pre, post) from plan_combo_mats(channels, frame)
+    mats: (pre, post) from plan_combo_mats(channels, frame, device)
     """
     p = _normalize_plan(p)
     dev = p["direct"].device
-    eb = [int(v) for v in MODE.ebands]
     nb = MODE.num_ebands
     M = 1 << lm
-    norm_offset = M * eb[start]
-    norm_len = M * eb[nb - 1] - norm_offset
-    npad = norm_len + 192
     S = p["direct"].shape[0]
     # tier slot counts come from the plane shapes (the host may run a
     # shrunk serving profile); nmax per tier is fixed
@@ -165,7 +152,7 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
     offs = [1]
     for nmax, slots in tiers:
         offs.append(offs[-1] + nmax * slots)
-    A_J, C_J = _lcg_t(dev)
+    A_J, C_J = lcg_tensors(dev)
     f32 = torch.float32
 
     # ---- P1 + P2: PVQ leaves per tier -> pool ------------------------
@@ -210,135 +197,10 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
         X = torch.gather(pool, 1, map_dev)                  # (S, C*frame)
 
     # ---- P3: band assembly, in band order (fold lowbands read bands
-    # decoded before them) --------------------------------------------
+    # decoded before them): one kernel launch on the card --------------
     with record_function("plan.bands"):
-        pre_stack, post_stack = mats
-        NBMAX = 22 * M
-        f64 = torch.float64
-        norm = torch.zeros((S, npad), dtype=f64, device=dev)
-        norm2 = torch.zeros((S, npad), dtype=f64, device=dev)
-        zero64 = torch.zeros((), dtype=f64, device=dev)
-        posb = torch.arange(NBMAX, device=dev)
-        rows = torch.arange(S, device=dev)
-
-        for i in range(start, end):
-            n_b = M * (eb[i + 1] - eb[i])
-            boff = M * eb[i]
-            nwoff = boff - norm_offset
-            nw_ok = nwoff >= 0 and nwoff + n_b <= norm_len
-            nwoff = min(max(nwoff, 0), max(0, npad - NBMAX))
-            scale = float(np.float32(math.sqrt(n_b))) if n_b > 1 else 1.0
-            valid = (posb < n_b)[None, :]
-            bx = []
-            for slot in range(channels):
-                x0 = slot * frame + boff
-                cur = X[:, x0:x0 + NBMAX]
-                if n_b == 1:
-                    # the n1 sign path replaces the whole band
-                    n1 = (p["n1_active"][:, i, slot][:, None]
-                          & (posb == 0)[None])
-                    bx.append(torch.where(
-                        n1, p["n1_val"][:, i, slot][:, None], cur))
-                    continue
-                act = p["call_active"][:, i, slot]
-                gidx = p["call_lb_src"][:, i, slot][:, None] + posb[None, :]
-                gc = torch.clamp(gidx, 0, npad - 1)
-                nv = torch.gather(norm, 1, gc)
-                n2v = torch.gather(norm2, 1, gc)
-                # special_hybrid_folding (bands.rs): window-local duplicate of
-                # the first band's folding data before the gather is consumed
-                dup = p["call_dup"][:, i, slot]
-                d_rel = posb[None, :] - dup[:, 0:1]
-                in_dup = (d_rel >= 0) & (d_rel < dup[:, 2:3])
-                sidx = torch.clamp(dup[:, 1:2] + d_rel, 0, n_b - 1)
-                nv = torch.where(in_dup, torch.gather(nv, 1, sidx), nv)
-                n2v = torch.where(in_dup, torch.gather(n2v, 1, sidx), n2v)
-                blend = gidx < p["call_blend_upto"][:, i, slot][:, None]
-                lbuf2 = (p["call_lb_buf"][:, i, slot] == 1)[:, None]
-                base = torch.where(lbuf2, n2v, nv)
-                scr = torch.where(blend, 0.5 * (nv + n2v), base)
-                pre_m = pre_stack[i][p["call_pre"][:, i, slot]]  # (S, N, N)
-                scr = torch.bmm(pre_m, scr[:, :, None])[..., 0]
-                # fold/noise fills: all fill slots at once (windows disjoint)
-                fa = p["fill_active"][:, i, slot, :] & act[:, None]
-                d = posb[None, None, :] - p["fill_off"][:, i, slot, :, None]
-                inw = (d >= 0) & (d < p["fill_n"][:, i, slot, :, None])
-                dc = torch.clamp(d + 1, 0, LCG_MAX - 1)
-                seeds = _lcg(A_J, C_J, dc, p["fill_seed"][:, i, slot, :, None])
-                plus = (seeds & 0x8000) != 0
-                fold_v = torch.where(plus, scr[:, None, :] + 1.0 / 256,
-                                     scr[:, None, :] - 1.0 / 256)
-                noise_v = (_as_i32(seeds) >> 20).to(f64)
-                vals = torch.where(p["fill_fold"][:, i, slot, :, None],
-                                   fold_v, noise_v)
-                vals = torch.where(inw, vals, zero64)
-                E = 1e-15 + (vals * vals).sum(dim=2)
-                g = p["fill_gain"][:, i, slot, :] / torch.sqrt(E)
-                live = fa[:, :, None] & inw
-                contrib = torch.where(live, vals * g[:, :, None], zero64)
-                covered = live.any(dim=1)
-                sl = torch.where(covered, contrib.sum(dim=1), cur)
-                post_m = post_stack[i][p["call_post"][:, i, slot]]
-                bx.append(torch.bmm(post_m, sl[:, :, None])[..., 0])
-            # norm writes (pre-merge, as in quant_band)
-            if nw_ok:
-                for slot in range(channels):
-                    nw = (p["call_norm_write"][:, i, slot]
-                          & p["call_active"][:, i, slot])
-                    tobuf2 = p["call_norm_buf"][:, i, slot] == 1
-                    val = scale * bx[slot]
-                    win = slice(nwoff, nwoff + NBMAX)
-                    norm[:, win] = torch.where((nw & ~tobuf2)[:, None] & valid,
-                                               val, norm[:, win])
-                    norm2[:, win] = torch.where((nw & tobuf2)[:, None] & valid,
-                                                val, norm2[:, win])
-            if channels == 2 and n_b == 2:
-                # N == 2 stereo butterfly
-                ta = p["theta2_active"][:, i]
-                sgn = p["theta2_sign"][:, i]
-                cs = p["theta2_cswap"][:, i]
-                x0, x1 = bx
-                der0 = torch.stack([-sgn * x1[:, 1], sgn * x1[:, 0]], dim=1)
-                der1 = torch.stack([-sgn * x0[:, 1], sgn * x0[:, 0]], dim=1)
-                nx = torch.where(cs[:, None], der0, x0[:, :2])
-                ny = torch.where(cs[:, None], x1[:, :2], der1)
-                nx = nx * p["theta2_mid"][:, i][:, None]
-                ny = ny * p["theta2_side"][:, i][:, None]
-                ox = nx - ny
-                oy = nx + ny
-                oy = torch.where(p["theta2_inv"][:, i][:, None], -oy, oy)
-                ox_f = torch.cat([ox, x0[:, 2:]], dim=1)
-                oy_f = torch.cat([oy, x1[:, 2:]], dim=1)
-                bx = [torch.where(ta[:, None], ox_f, x0),
-                      torch.where(ta[:, None], oy_f, x1)]
-            if channels == 2 and n_b > 2:
-                # stereo merge
-                ma = p["merge_active"][:, i]
-                mmid = p["merge_mid"][:, i]
-                x0, x1 = bx
-                x0v = torch.where(valid, x0, zero64)
-                x1v = torch.where(valid, x1, zero64)
-                xp = (x0v * x1v).sum(dim=1) * mmid
-                sd = (x1v * x1v).sum(dim=1)
-                el = mmid * mmid + sd - 2 * xp
-                er = mmid * mmid + sd + 2 * xp
-                degen = (er < 6e-4) | (el < 6e-4)
-                lg = 1.0 / torch.sqrt(torch.clamp(el, min=1e-20))
-                rg = 1.0 / torch.sqrt(torch.clamp(er, min=1e-20))
-                lpart = mmid[:, None] * x0
-                mx = lg[:, None] * (lpart - x1)
-                my = rg[:, None] * (lpart + x1)
-                mx = torch.where(degen[:, None], x0, mx)
-                my = torch.where(degen[:, None], x0, my)
-                inv = p["merge_inv"][:, i]
-                my = torch.where(inv[:, None], -my, my)
-                x1k = torch.where(inv[:, None], -x1, x1)
-                bx = [torch.where(ma[:, None], mx, x0),
-                      torch.where(ma[:, None], my, x1k)]
-            for slot in range(channels):
-                x0 = slot * frame + boff
-                X[:, x0:x0 + NBMAX] = torch.where(valid, bx[slot],
-                                                  X[:, x0:x0 + NBMAX])
+        band_assembly(p, X, mats, channels=channels, frame=frame, lm=lm,
+                      start=start, end=end)
 
     # ---- P4: anti-collapse (whole plane at once) -----------------------
     # The per-(band, channel) LCG draw counts are known up front, so every
@@ -364,7 +226,7 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
             ddraw = prefq * n0q[None, :] + q["jmap"][None, :] + 1
             dd = torch.clamp(cum_prior[:, :, c][:, bmap] + ddraw, 0,
                              LCG_MAX - 1)
-            seeds = _lcg(A_J, C_J, dd, p["ac_seed"][:, None])
+            seeds = lcg_at(A_J, C_J, dd, p["ac_seed"][:, None])
             rq = ac_r[:, c, :][:, bmap]
             val = torch.where((seeds & 0x8000) != 0, rq, -rq)
             xplane = X[:, c * frame:c * frame + nbins]
@@ -374,7 +236,7 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
             gb = 1.0 / torch.sqrt(Eb)
             anyb = (cnt[:, :, c] > 0) & ac_on[:, None]           # (S, nb)
             gq = torch.where(anyb[:, bmap] & vmask[None, :], gb[:, bmap],
-                             torch.ones((), dtype=f64, device=dev))
+                             torch.ones((), dtype=torch.float64, device=dev))
             X[:, c * frame:c * frame + nbins] = x2 * gq
 
     return torch.where(p["direct"][:, None], x_direct.reshape(S, -1),

@@ -26,8 +26,8 @@ import torch
 
 from ..celt.plan import TIERS, combos_for_m
 from ..hostcodec.celt.modes import BITRES
-from ._tables import lcg_jump
-from .band_exec import _lcg, cwrs_walk
+from ._tables import lcg_at, lcg_jump
+from .band_exec import cwrs_walk
 from .celt_lockstep import _tables
 from .celt_lockstep_walk import NPB, _bitexact_cos, walk_layout
 
@@ -409,10 +409,10 @@ def emit_plan(emits, *, C: int, lm: int, hdr, tf_res, spread, alloc,
     dr = torch.zeros((S, RMAX + 1), dtype=_I64, device=dev).scatter_add_(
         1, torch.where(is_fill_slot, rank_c, RMAX), draws)
     cum = torch.cumsum(dr[:, :RMAX], dim=1) - dr[:, :RMAX]
-    seed_rank = _lcg(A_J, C_J, cum.clamp(0, A_J.shape[0] - 1),
+    seed_rank = lcg_at(A_J, C_J, cum.clamp(0, A_J.shape[0] - 1),
                      seed0[:, None])
     seed_slot = torch.gather(seed_rank, 1, rank_c.clamp(0, RMAX - 1))
-    seed_final = _lcg(A_J, C_J, draws.sum(dim=1).clamp(0, A_J.shape[0] - 1),
+    seed_final = lcg_at(A_J, C_J, draws.sum(dim=1).clamp(0, A_J.shape[0] - 1),
                       seed0)
 
     # ---- assemble plan planes (compact tier slots) ----------------------
@@ -438,11 +438,13 @@ def emit_plan(emits, *, C: int, lm: int, hdr, tf_res, spread, alloc,
     oh_i = onehot.to(_I64)
 
     def to_plane(x, fillval):
-        """(S, C, 21, F) -> (S, 21, 2, F) with the slot axis padded to 2."""
+        """(S, C, 21, F) -> (S, 21, 2, F) with the slot axis padded to 2,
+        each stream's row contiguous (the band assembly kernel's layout,
+        as in the host's arena)."""
         x = x.permute(0, 2, 1, 3)
         if C == 1:
             x = torch.cat([x, torch.full_like(x, fillval)], dim=2)
-        return x
+        return x.contiguous()
 
     p["fill_active"] = to_plane(onehot.any(dim=3), False)
     p["fill_fold"] = to_plane((onehot & fold4[..., None]).any(dim=3), False)

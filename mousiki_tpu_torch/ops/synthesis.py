@@ -3,14 +3,17 @@
 Per step, for S streams at once: denormalise (band-energy scale through a
 bin->band gather), long/short IMDCT as matrix products (float32 operators
 accumulated in float64, rounded once: see _device.py), the TDAC
-overlap combine, the chunked comb postfilter, and the de-emphasis tail
-(IIR, 1/32768 scale and (S, C, N) -> (S, N, C) interleave: one CUDA
-kernel of ops/deemphasis.py on the card). Public layouts follow the JAX
-module: state tensors are (S, C, ...), PCM comes out as (S, N, C).
+overlap combine, the chunked comb postfilter (one CUDA kernel a call on
+the card, csrc/comb_filter.cu; its plain version on the CPU), and the
+de-emphasis tail (IIR, 1/32768 scale and (S, C, N) -> (S, N, C)
+interleave: one CUDA kernel of ops/deemphasis.py on the card). Public
+layouts follow the JAX module: state tensors are (S, C, ...), PCM comes
+out as (S, N, C).
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -20,6 +23,7 @@ from torch.profiler import record_function
 
 from .. import _device
 from ..celt.modes import DECODE_BUFFER_SIZE, E_MEANS, MODE
+from . import _build
 from ._tables import COMB_GAINS, bin_band_map
 from .deemphasis import deemphasis_pcm
 from .mdct import imdct_matrix
@@ -29,6 +33,14 @@ HALF = OVERLAP // 2
 N960 = 960
 COMB_MIN = 15
 CHUNK = COMB_MIN - 2
+
+# kernel launches made by `comb_filter_batched` (not by the plain version)
+comb_filter_launches = 0
+
+
+def reset_launches() -> None:
+    global comb_filter_launches
+    comb_filter_launches = 0
 
 
 class SynthesisConsts(NamedTuple):
@@ -180,8 +192,10 @@ def _comb_taps(device: torch.device):
             torch.tensor([0, 1, -1, 2, -2], device=device))
 
 
-def comb_filter_batched(consts, buf, pos, N, t0, t1, g0, g1, tap0, tap1):
-    """Batched comb filter over buf[..., pos:pos+N], in place on `buf`.
+def comb_filter_batched_reference(consts, buf, pos, N, t0, t1, g0, g1, tap0,
+                                  tap1):
+    """The plain version of the comb filter kernel: the batched comb
+    filter over buf[..., pos:pos+N], in place on `buf`.
 
     buf: (S, C, L); periods t0/t1 (S,) >= 15; gains (S,); taps (S,) int.
     A Python loop over chunks of COMB_MIN-2 = 13 samples, the chunking of
@@ -236,6 +250,116 @@ def comb_filter_batched(consts, buf, pos, N, t0, t1, g0, g1, tap0, tap1):
         y = cur + (taps * wts[ci][:, None]).sum(dim=2)
         buf[..., start:start + CHUNK] = torch.where(valid[ci][:, None, :],
                                                     y, cur)
+    return buf
+
+
+class _Plane(ctypes.Structure):
+    """csrc/comb_filter.cu's Plane: a plane's data and its stream stride
+    in elements."""
+    _fields_ = [("data", ctypes.c_void_p), ("stride", ctypes.c_int64)]
+
+
+COMB_PLANES = ("t0", "t1", "g0", "g1", "tap0", "tap1")
+
+
+class _CombPlanes(ctypes.Structure):
+    _fields_ = [(key, _Plane) for key in COMB_PLANES]
+
+
+def _comb_kernel():
+    lib = _build.load("comb_filter")
+    fn = lib.mousiki_comb_filter
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def build_comb_kernel() -> None:
+    """Compile and load the comb filter kernel now (it is otherwise built
+    on first launch)."""
+    _comb_kernel()
+
+
+def _check_comb(consts, buf, pos: int, N: int, planes: dict):
+    """Dtype, shape and device checks of the comb filter's arguments on
+    both routes (planes: {name: (tensor, dtype)}); returns the device."""
+    if buf.dtype != torch.float32 or buf.dim() != 3:
+        raise TypeError(f"comb_filter_batched: buf must be (S, C, L) "
+                        f"float32, got {tuple(buf.shape)} {buf.dtype}")
+    S, _, L = buf.shape
+    if not (0 <= pos and 1 <= N and pos + N <= L):
+        raise ValueError(f"comb_filter_batched: [{pos}, {pos + N}) is not "
+                         f"inside a row of {L}")
+    dev = buf.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"comb_filter_batched runs on cpu or cuda, not "
+                         f"{dev}")
+    tables = {"window": (consts.window, (OVERLAP,)),
+              "comb_gains": (consts.comb_gains, (3, 3))}
+    for key, (t, shape) in tables.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"comb_filter_batched: consts.{key} must be "
+                             f"{shape} float32")
+    for key, (t, dtype) in planes.items():
+        if t.dtype != dtype:
+            raise TypeError(f"comb_filter_batched: {key} must be {dtype}, "
+                            f"got {t.dtype}")
+        if tuple(t.shape) != (S,):
+            raise ValueError(f"comb_filter_batched: bad shape of {key}: "
+                             f"{tuple(t.shape)}, not ({S},)")
+    others = [(k, t) for k, (t, _) in (*tables.items(), *planes.items())]
+    for key, t in others:
+        if t.device != dev:
+            raise ValueError(f"comb_filter_batched: {key} is on {t.device}, "
+                             f"buf on {dev}")
+    return dev
+
+
+def _check_comb_kernel(consts, buf):
+    """What the kernel takes beyond _check_comb: a contiguous buf and
+    tables (the (S,) planes may be strided)."""
+    for key, t in (("buf", buf), ("window", consts.window),
+                   ("comb_gains", consts.comb_gains)):
+        if not t.is_contiguous():
+            raise ValueError(f"comb_filter_batched needs contiguous "
+                             f"tensors ({key})")
+
+
+def comb_filter_batched(consts, buf, pos, N, t0, t1, g0, g1, tap0, tap1):
+    """Batched comb filter over buf[..., pos:pos+N], in place on `buf`:
+    taps at lags t0 and t1 with gains g0 and g1, cross-faded over the
+    window's overlap, as the reference's fori_loop computes it.
+
+    buf: (S, C, L) float32; periods t0/t1 (S,) int32 >= 15; gains g0/g1
+    (S,) float32; taps tap0/tap1 (S,) int32. CPU tensors take
+    `comb_filter_batched_reference`; CUDA tensors launch the kernel once.
+    Returns buf."""
+    i32, f32 = torch.int32, torch.float32
+    args = dict(zip(COMB_PLANES, (t0, t1, g0, g1, tap0, tap1)))
+    dev = _check_comb(consts, buf, pos, N, {
+        k: (t, f32 if k in ("g0", "g1") else i32) for k, t in args.items()})
+    if dev.type == "cpu":
+        return comb_filter_batched_reference(consts, buf, pos, N, t0, t1,
+                                             g0, g1, tap0, tap1)
+    _check_comb_kernel(consts, buf)
+    S, C, L = buf.shape
+    if S * C == 0:
+        return buf
+    planes = _CombPlanes(*(_Plane(t.data_ptr(), t.stride(0))
+                           for t in args.values()))
+    fn = _comb_kernel()
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), consts.window.data_ptr(),
+                consts.comb_gains.data_ptr(), ctypes.addressof(planes),
+                S * C, C, L, pos, N,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"comb_filter kernel launch failed: cuda error "
+                           f"{rc}")
+    global comb_filter_launches
+    comb_filter_launches += 1
     return buf
 
 

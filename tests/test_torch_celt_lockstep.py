@@ -36,7 +36,7 @@ from mousiki_tpu_torch.ops import celt_lockstep_emit as tle
 from mousiki_tpu_torch.ops import celt_lockstep_top as tlt
 from mousiki_tpu_torch.ops import celt_lockstep_walk as tlw
 from mousiki_tpu_torch.ops import ec_lockstep as tec
-from mousiki_tpu_torch.ops import synthesis
+from mousiki_tpu_torch.ops import band_assembly, band_exec, synthesis
 from mousiki_tpu_torch.ops.band_exec import execute_packed, plan_combo_mats
 from mousiki_tpu_torch.pipeline import CeltStreamPipeline
 from torch_threads import one_torch_thread  # noqa: F401
@@ -279,6 +279,18 @@ def test_xplane_parity(golden_walk):
     for f in range(S):
         err = float(np.abs(X[f] - execute_plan(plans[f])).max())
         assert err < 2e-4, f"frame {f}: X err {err}"
+
+
+def test_emission_planes_take_the_band_kernel_layout(golden_walk):
+    """The emitted plan planes in the layout the band assembly kernel
+    reads on the card (each stream's row contiguous, as in the host's
+    arena), after the executor's normalisation."""
+    C, buf, storage, state, traces, plans, w = golden_walk
+    p, *_ = _finish(w, state, C)
+    p = band_exec._normalize_plan(p)
+    X = torch.zeros((buf.shape[0], C * FRAME), dtype=torch.float64)
+    band_assembly._check_kernel(p, X, band_assembly.packed_operators(
+        FRAME, "cpu"), FRAME, LM)
 
 
 @pytest.mark.parametrize("channels", [2, 1])
