@@ -59,21 +59,28 @@ thing if any module of mousiki_tpu is loaded):
      of a tight profile ((60, 20, 2), 2, 8), and on plans of 2.5, 5 and
      10 ms frames (LM 0-2: the n1 sign path, the N = 2 butterfly),
      stereo and mono, encoded on the card by CeltEncodePipeline from the
-     golden PCM: the X plane within 1e-5 (the largest error and the
-     values whose float32 rounding differs printed); (b) the comb filter
-     on those steps' decode memory and on seeded rows
+     golden PCM, and on golden frame 4 with each live fold call's
+     source window moved onto a later band's norm region (that band
+     forced into the kernel's ordered pass): the X plane within 1e-12
+     (the largest error, the values whose float32 rounding differs and
+     each plan's bands in the parallel and the ordered pass printed);
+     (b) the comb filter on those steps' decode memory and on seeded rows
      (comb_cases.comb_rows: periods 15-1022, tapsets 0-2, the same
-     filter before and after, g1 = 0, g0 = g1 = 0) at every frame size,
-     both calls of a frame: each row within 4 float32 ulps of its peak
-     magnitude, skipped rows and the samples after the blend where g1 =
-     0 bit for bit; (c) at every path's (S, C), each kernel's device time
-     of a step's launches (torch.profiler; the band assembly with float32
-     and with float64 operators), its bound (the bytes the launch must
-     move, the operator blocks its calls read counted once, over HBM
-     bandwidth, against float64 operations over 34 TFLOP/s for the band
-     assembly, float32 operations over the fp32 peak for the comb
-     filter), the plain version's device time and CUDA-event times of a
-     call of both; the lockstep steps' own calls are checked and timed in
+     filter before and after, g1 = 0, g0 = g1 = 0, and min(t0, t1) at
+     the edges of the kernel's chunk: 15, 33-35, 130-131, 1022, one
+     period short) at every frame size, both calls of a frame: each row
+     within 4 float32 ulps of its peak magnitude, skipped rows and the
+     samples after the blend where g1 = 0 bit for bit; the distribution
+     of min(t0, t1) over the golden and the bench's rows printed; (c) at
+     every path's (S, C), each kernel's device time of a step's launches
+     (torch.profiler), its bound (the bytes the launch must move, the
+     operator blocks its calls read counted once by their nonzeros, over
+     HBM bandwidth, against float64 operations (2 a nonzero a call) over
+     the FP64 peak for the band assembly, float32 operations over the
+     fp32 peak for the comb filter; the band bound of the dense count,
+     2 n_b^2 a call and whole blocks read, printed beside it), the plain
+     version's device time and CUDA-event times of a call of both; the
+     lockstep steps' own calls are checked and timed in
      phases 22 and 26; at the end, every frame size a path's executor
      ran is among those checked here (no path of this script runs LM
      0-2);
@@ -1046,7 +1053,8 @@ def _assembly_check(label, call):
     arguments (the executor's planes and X plane): X within
     ASSEMBLY_TOL, and equal when the planes' streams lie further apart.
     Returns [streams, channels, frame, the largest error, the values
-    whose float32 rounding differs]."""
+    whose float32 rounding differs, the bands in the kernel's parallel
+    pass, in its ordered pass, the most ordered bands of a stream]."""
     (p, X, mats), kw = call
     got = band_asm.band_assembly(p, X.clone(), mats, **kw)
     want = band_asm.band_assembly_reference(
@@ -1061,7 +1069,11 @@ def _assembly_check(label, call):
     check(torch.equal(gapped, got), f"{label}: band_assembly differs on "
           f"planes whose streams lie further apart")
     flips = int((got.float() != want.float()).sum())
-    return [X.shape[0], kw["channels"], kw["frame"], err, flips]
+    passes = band_asm.band_passes(
+        p, **{k: kw[k] for k in ("channels", "lm", "start", "end")})
+    return [X.shape[0], kw["channels"], kw["frame"], err, flips,
+            int((passes == 1).sum()), int((passes == 2).sum()),
+            int((passes == 2).sum(axis=1).max())]
 
 
 def _comb_check(label, call):
@@ -1097,14 +1109,17 @@ def _comb_check(label, call):
     return [diff.max().item(), ulps]
 
 
-def assembly_work(p, kw) -> tuple[int, int]:
+def assembly_work(p, kw, dense: bool = False) -> tuple[int, int]:
     """(bytes, operations) of the band assembly on these planes: the X
     plane's bins of bands start..end-1 read and written once (float64),
-    each plane read once, each operator block some call reads once
-    (float32); 2 n_b^2 float64 operations for the post product of every
-    call of a band with n_b > 1 and for the pre product where a live fold
-    fill reads it (the elementwise work is not counted)."""
-    C, lm = kw["channels"], kw["lm"]
+    each plane read once, each operator block some call reads once, by
+    its nonzeros (a float32 value and a one-byte column each); 2
+    float64 operations a nonzero of the block for the post product of
+    every call of a band with n_b > 1 and for the pre product where a
+    live fold fill reads it (the elementwise work is not counted).
+    dense: the dense count instead, whole n_b x n_b float32 blocks read
+    and 2 n_b^2 operations a product."""
+    C, lm, frame = kw["channels"], kw["lm"], kw["frame"]
     q = {k: p[k].cpu().numpy() for k in band_asm.PLANE_KEYS}
     S = q["call_active"].shape[0]
     widths = band_asm._band_widths(lm)
@@ -1112,17 +1127,21 @@ def assembly_work(p, kw) -> tuple[int, int]:
     nbytes = 2 * S * C * bins * 8 + sum(v.nbytes for v in q.values())
     fold = ((q["fill_active"] & q["fill_fold"]).any(axis=3)
             & q["call_active"])
+    stacks = dict(zip(("pre", "post"), plan_combo_mats_np(frame)))
     flops, blocks = 0, set()
     for i in range(kw["start"], kw["end"]):
         n_b = widths[i]
         if n_b == 1:
             continue
-        post = q["call_post"][:, i, :C]
-        pre = q["call_pre"][:, i, :C][fold[:, i, :C]]
-        flops += 2 * n_b * n_b * (post.size + pre.size)
-        blocks |= {("post", i, int(c)) for c in np.unique(post)}
-        blocks |= {("pre", i, int(c)) for c in np.unique(pre)}
-    nbytes += sum(4 * widths[i] ** 2 for _, i, _ in blocks)
+        calls = {"post": q["call_post"][:, i, :C].ravel(),
+                 "pre": q["call_pre"][:, i, :C][fold[:, i, :C]]}
+        for op, combos in calls.items():
+            nnz = (stacks[op][i, :, :n_b, :n_b] != 0).sum(axis=(1, 2))
+            per = np.full_like(nnz, n_b * n_b) if dense else nnz
+            flops += 2 * int(per[combos].sum())
+            blocks |= {(op, i, int(c), 4 * n_b * n_b if dense
+                        else 5 * int(nnz[c])) for c in np.unique(combos)}
+    nbytes += sum(b[3] for b in blocks)
     return nbytes, flops
 
 
@@ -1150,7 +1169,8 @@ def comb_work(call) -> tuple[int, int]:
 
 def _assembly_times(call):
     """The band assembly's times on one call's arguments: the kernel, the
-    plain version, the bound (float64 operations at FP64_FLOPS)."""
+    plain version, the bound (float64 operations at FP64_FLOPS), and the
+    bound under the dense count beside it."""
     (p, X, mats), kw = call
     Xw = torch.empty_like(X)
     row = _kernel_times(
@@ -1159,7 +1179,11 @@ def _assembly_times(call):
         lambda: band_asm.band_assembly_reference(
             p, Xw.copy_(X), _stacks(kw["frame"], X.device), **kw),
         *assembly_work(p, kw), peak=FP64_FLOPS)
-    row["shape"] = [X.shape[0], kw["channels"], kw["frame"]]
+    dense_bytes, dense_ops = assembly_work(p, kw, dense=True)
+    row.update(shape=[X.shape[0], kw["channels"], kw["frame"]],
+               dense_count_bytes=dense_bytes, dense_count_operations=dense_ops,
+               dense_count_bound_ms=max(dense_bytes / HBM_BYTES_PER_S,
+                                        dense_ops / FP64_FLOPS) * 1e3)
     return row
 
 
@@ -1265,6 +1289,72 @@ def _rows_at(call, S, period, assembly: bool):
     return (consts, *(tile(v) for v in rest)), kw
 
 
+def _forced_order(call):
+    """The call with each live fold call's source window moved onto the
+    norm region of the first later band of the kernel's parallel pass
+    that writes there: those bands then run in the ordered pass. Returns
+    (the call, the bands so forced)."""
+    (p, X, mats), kw = call
+    span = {k: kw[k] for k in ("channels", "lm", "start", "end")}
+    C = kw["channels"]
+    before = band_asm.band_passes(p, **span)
+    q = {k: p[k].cpu().numpy() for k in band_asm.PLANE_KEYS}
+    live = ((q["fill_active"] & q["fill_fold"]).any(axis=3)
+            & q["call_active"])[:, :, :C]
+    writes = (q["call_norm_write"] & q["call_active"])[:, :, :C].any(axis=2)
+    t = band_asm._band_table(kw["lm"], kw["start"])
+    lb = q["call_lb_src"].copy()
+    for s, j, slot in np.argwhere(live & (before == 2)[:, :, None]):
+        later = [k for k in range(j + 1, kw["end"]) if before[s, k] == 1
+                 and writes[s, k] and t.nwoff[k] >= 0]
+        if later:
+            lb[s, j, slot] = t.nwoff[later[0]]
+    moved = dict(p, call_lb_src=torch.as_tensor(lb, device=X.device))
+    after = band_asm.band_passes(moved, **span)
+    return ((moved, X, mats), kw), int(((after == 2) & (before == 1)).sum())
+
+
+# the comb kernel's chunk classes by min(t0, t1): the plain version's 13
+# (min 15 or less), one warp (16-34), up to four warps (35-129), the 128
+# lanes of a row (130 or more)
+CHUNK_CLASSES = (("chunk13", 0, 16), ("one_warp", 16, 35),
+                 ("four_warps", 35, 130), ("chunk128", 130, 1 << 30))
+
+
+def _min_lags(calls) -> dict:
+    """The distribution of min(t0, t1) over the active rows (g0 or g1
+    not 0) of comb filter calls (args as _kept_calls keeps them): rows
+    by chunk class, the calls that hold a row of chunk 13 (it bounds the
+    call), and the rows the filter skips."""
+    hist = {name: 0 for name, _, _ in CHUNK_CLASSES}
+    bound13 = skipped = 0
+    for (_, buf, _, _, t0, t1, g0, g1, _, _), _ in calls:
+        act = ((g0 != 0) | (g1 != 0)).cpu().numpy()
+        low = torch.minimum(t0, t1).cpu().numpy()[act]
+        C = buf.shape[1]
+        for name, a, b in CHUNK_CLASSES:
+            hist[name] += C * int(((low >= a) & (low < b)).sum())
+        bound13 += int((low < 16).any())
+        skipped += C * int((~act).sum())
+    return dict(rows=hist, calls=len(calls), calls_with_chunk13=bound13,
+                rows_skipped=skipped)
+
+
+def _bench_rows(dev, steps=4):
+    """The comb filter calls of the bench's decode (its synthetic
+    packets, stream s playing frame (i + s) % 48 at step i) at S = 256,
+    steps 1..steps-1 (step 0 starts from no postfilter)."""
+    pays = bench.load_fixture()["synthetic"]["payloads"]
+    pipe = CeltStreamPipeline(S_MAIN, channels=2, use_plan=True, device=dev)
+    calls = []
+    for i in range(steps):
+        with _kept_calls(synthesis, "comb_filter_batched", 2) as c:
+            pipe.step([pays[(i + s) % len(pays)] for s in range(S_MAIN)],
+                      FRAME)
+        calls += c if i else []
+    return calls
+
+
 def phase_step_kernels(dev, streams, mono, widths):
     """The band assembly and comb filter kernels against their plain
     versions on the card: (a) the band assembly on the plan decoders' own
@@ -1277,10 +1367,12 @@ def phase_step_kernels(dev, streams, mono, widths):
     each at every width in `widths` ({kernel: {(S, C)}}). Returns {kernel:
     {(S, C): row}}."""
     assembled, combed = {}, {}
+    golden_lags = []
     pipe = CeltStreamPipeline(S_MAIN, channels=2, use_plan=True, device=dev)
     for f in range(max(ASSEMBLY_FRAMES) + 1):
         with _step_calls() as (a, c):
             pipe.step(frame_batch(streams, S_MAIN, f), FRAME)
+        golden_lags += c if f else []
         if f in ASSEMBLY_FRAMES:
             assembled[f"celt_frame{f}"] = a[0]
             combed.update({f"celt_frame{f}_call{k}": x
@@ -1307,6 +1399,13 @@ def phase_step_kernels(dev, streams, mono, widths):
         set_plan_profile(*SERVING_PROFILE)
     check(direct > 0, "the tight profile sent no stream to the direct "
           "decoder")
+    assembled["forced_order_frame4"], forced = _forced_order(
+        assembled["celt_frame4"])
+    check(forced > 0, "moving the fold sources forced no band into the "
+          "ordered pass")
+    say("comb_min_lag", golden=_min_lags(golden_lags),
+        bench=_min_lags(_bench_rows(dev)))
+    del golden_lags
     for C in (2, 1):
         for n in SHORT_FRAMES:
             arenas, aux = _encoded_arenas(dev, streams, S_MAIN, C, n)
@@ -1331,6 +1430,7 @@ def phase_step_kernels(dev, streams, mono, widths):
     comb_ulps = max(v[1] for v in comb_errs.values())
     say("step_kernels", assembly_cases=checked, assembly_worst_err=worst,
         assembly_bar=ASSEMBLY_TOL, tight_profile_direct_streams=direct,
+        forced_order_bands=forced,
         comb_cases=comb_errs, comb_worst_abs_err=comb_worst,
         comb_worst_ulps_of_peak=comb_ulps, comb_bar_ulps=COMB_ULPS)
     base = {2: ("celt_frame4", 3), 1: ("mixed_frame4", len(mono))}

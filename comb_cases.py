@@ -18,6 +18,19 @@ BLEND = 120
 ROW_LEN = DECODE_BUFFER_SIZE + BLEND // 2
 
 
+# the special rows of comb_rows past the first six: name -> (t0, t1),
+# min(t0, t1) at the edges of the comb kernel's chunk (min(t0, t1) - 2,
+# at least 13, at most the 128 lanes of a row; up to 32 on one warp)
+EDGE_ROWS = {
+    "lag_33": (33, 33),
+    "lag_34": (34, 34),
+    "lag_35": (35, 35),
+    "lag_130": (130, 130),
+    "lag_131": (131, 131),
+    "one_short": (17, MAX_PERIOD),
+}
+
+
 def comb_rows(rng, n_streams: int, channels: int = 2) -> dict:
     """Decode memory (n_streams, channels, ROW_LEN) float32 and the
     postfilter's parameters (int32 periods and tapsets, float32 gains)
@@ -25,7 +38,8 @@ def comb_rows(rng, n_streams: int, channels: int = 2) -> dict:
     [0.05, 0.75), with the special rows 0 the shortest period, 1 the
     longest, 2 g1 = 0 (the filter stops after the blend), 3 g0 = g1 = 0
     (the row left as it is), 4 the same filter before and after (no
-    blend) and 5 only g0 = 0. Needs n_streams >= 6."""
+    blend), 5 only g0 = 0, and 6-11 the EDGE_ROWS in order. Needs
+    n_streams >= 12."""
     S = n_streams
     buf = (rng.standard_normal((S, channels, ROW_LEN)) * 3000).astype(
         np.float32)
@@ -41,6 +55,8 @@ def comb_rows(rng, n_streams: int, channels: int = 2) -> dict:
     g0[3] = g1[3] = 0.0
     t1[4], g1[4], tap1[4] = t0[4], g0[4], tap0[4]
     g0[5] = 0.0
+    for k, (a, b) in enumerate(EDGE_ROWS.values(), start=6):
+        t0[k], t1[k] = a, b
     return dict(buf=buf, t0=t0, t1=t1, g0=g0, g1=g1, tap0=tap0, tap1=tap1)
 
 

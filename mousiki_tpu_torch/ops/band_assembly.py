@@ -11,16 +11,18 @@ plane. Port of the P3 band_body scan of band_exec_jax.execute_packed
 
 The reference compiles the 21 bands as one lax.scan; here a CUDA tensor
 always goes to the hand-written kernel of csrc/band_assembly.cu (one
-thread block a stream, one launch a call), and a CPU tensor to the plain
-version, `band_assembly_reference`, the Python loop over the bands that
+thread block a stream, one launch a call; the bands that no live fold
+fill ties to an earlier one run at once, the rest in band order: see
+`band_passes`), and a CPU tensor to the plain version, `band_assembly_reference`, the Python loop over the bands that
 ran on every device before. There is no other route: `band_assembly`
 raises on a device that is neither, on a dtype or a shape the kernel does
 not take, and when the kernel cannot build or launch.
 
 The X plane is float64 and updated in place; the operators hold the
 reference's float32 values (_device.py), in the layout that
-band_exec.plan_combo_mats gives for the device. uint32 values are held in
-int64 tensors, as everywhere in the executor.
+band_exec.plan_combo_mats gives for the device: dense stacks for the
+plain version, their nonzeros (`packed_operators`) for the kernel. uint32
+values are held in int64 tensors, as everywhere in the executor.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +46,9 @@ N_BANDS = 21
 # fill slots a call the kernel takes: the lockstep plan emission's 8
 # (ops/celt_lockstep_emit.FILL_SLOTS_LS; the host's profiles give at most 4)
 MAX_FILL = 8
+# (column, value) pairs a packed operator row: the most nonzeros a row of
+# any combo block holds, at every LM (asserted where they are packed)
+NZ = 8
 
 # kernel launches made by `band_assembly` (not by the plain version)
 band_assembly_launches = 0
@@ -74,15 +80,16 @@ def _band_widths(lm: int):
     return [M * (eb[i + 1] - eb[i]) for i in range(N_BANDS)]
 
 
-def _op_offsets(lm: int):
-    """Offset of each band's first combo block in the packed operators,
-    and their total length: NC blocks of n_b x n_b a band with n_b > 1."""
+def _row_offsets(lm: int):
+    """The first packed row of each band's combo 0, and the rows in all:
+    NC x n_b rows a band with n_b > 1 (combo c's row m at offset + c n_b +
+    m)."""
     nc = len(combos_for_m(1 << lm))
     offs, total = [], 0
     for n_b in _band_widths(lm):
         offs.append(total)
         if n_b > 1:
-            total += nc * n_b * n_b
+            total += nc * n_b
     return offs, total
 
 
@@ -279,7 +286,7 @@ class _BandTable(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int * N_BANDS),
                 ("boff", ctypes.c_int * N_BANDS),
                 ("nwoff", ctypes.c_int * N_BANDS),
-                ("op_off", ctypes.c_int * N_BANDS),
+                ("row_off", ctypes.c_int * N_BANDS),
                 ("scale", ctypes.c_double * N_BANDS)]
 
 
@@ -287,52 +294,114 @@ class _BandTable(ctypes.Structure):
 def _band_table(lm: int, start: int) -> _BandTable:
     """The kernel's per-band constants, as the plain version derives
     them: width, offset, norm write offset (-1 where it writes none),
-    operator offset and the norm write's scale."""
+    first packed operator row and the norm write's scale."""
     norm_offset, norm_len, _ = norm_geometry(lm, start)
     M = 1 << lm
     eb = _ebands()
     widths = _band_widths(lm)
-    offs, _ = _op_offsets(lm)
+    offs, _ = _row_offsets(lm)
     t = _BandTable()
     for i, n_b in enumerate(widths):
         nwoff = M * eb[i] - norm_offset
         t.n[i] = n_b
         t.boff[i] = M * eb[i]
         t.nwoff[i] = nwoff if nwoff >= 0 and nwoff + n_b <= norm_len else -1
-        t.op_off[i] = offs[i]
+        t.row_off[i] = offs[i]
         t.scale[i] = float(np.float32(math.sqrt(n_b))) if n_b > 1 else 1.0
     return t
 
 
+class SparseOperators(NamedTuple):
+    """One operator stack (pre or post) as the kernel reads it: each row
+    of every band's combo blocks as NZ (column, value) pairs, columns in
+    ascending order, padded with (0, 0.0)."""
+    cols: torch.Tensor     # (rows, NZ) uint8
+    vals: torch.Tensor     # (rows, NZ) float32, the reference's values
+
+
+def _sparse_rows(block: np.ndarray):
+    """The rows of a (rows, n_b) block as (columns, values), NZ a row."""
+    nz = block != 0
+    k = int(nz.sum(axis=1).max())
+    assert k <= NZ, f"an operator row holds {k} nonzeros, the kernel {NZ}"
+    rows, n_b = block.shape
+    order = np.argsort(~nz, axis=1, kind="stable")[:, :NZ]
+    keep = np.take_along_axis(nz, order, axis=1)
+    cols = np.zeros((rows, NZ), np.uint8)
+    vals = np.zeros((rows, NZ), np.float32)
+    w = order.shape[1]
+    cols[:, :w] = np.where(keep, order, 0)
+    vals[:, :w] = np.where(keep, np.take_along_axis(block, order, axis=1), 0)
+    return cols, vals
+
+
 @lru_cache(maxsize=None)
 def _packed_np(frame: int):
-    """(pre, post) of plan_combo_mats_np(frame) packed for the kernel: for
-    each band with n_b > 1 and each combo, the n_b x n_b block stored by
-    columns, float32."""
+    """(pre, post) of plan_combo_mats_np(frame) packed for the kernel:
+    for each band with n_b > 1, its NC blocks' rows in turn, each row's
+    nonzeros as (columns, values) (`_sparse_rows`)."""
     lm = {120: 0, 240: 1, 480: 2, 960: 3}[frame]
-    pre_all, post_all = plan_combo_mats_np(frame)
     out = []
-    for stack in (pre_all, post_all):
-        parts = [np.ascontiguousarray(
-                     stack[i, :, :n_b, :n_b].transpose(0, 2, 1)).reshape(-1)
+    for stack in plan_combo_mats_np(frame):
+        parts = [_sparse_rows(stack[i, :, :n_b, :n_b].reshape(-1, n_b))
                  for i, n_b in enumerate(_band_widths(lm)) if n_b > 1]
-        out.append(np.concatenate(parts))
-    assert out[0].size == _op_offsets(lm)[1]
+        out.append(tuple(np.concatenate(a) for a in zip(*parts)))
+    assert out[0][0].shape == (_row_offsets(lm)[1], NZ)
     return tuple(out)
 
 
 def packed_operators(frame: int, device):
     """The pre and post combo operators as the kernel reads them: two
-    1-D float32 tensors (the reference's float32 values) on `device`."""
+    SparseOperators (the reference's float32 values) on `device`."""
     dev = _device.as_device(device)
-    return tuple(torch.as_tensor(a, device=dev) for a in _packed_np(frame))
+    return tuple(SparseOperators(*(torch.as_tensor(a, device=dev)
+                                   for a in pair))
+                 for pair in _packed_np(frame))
+
+
+def band_passes(p: dict, *, channels: int, lm: int, start: int, end: int):
+    """The kernel's schedule of each stream's bands, in numpy (the kernel
+    works it out itself; tests and reports read this): (S, 21) int8, 0
+    outside start..end-1, 2 the ordered pass, 1 the parallel pass. A band
+    is ordered when a call of it has a live fold fill (fill_active &
+    fill_fold & call_active, n_b > 1), or when it writes the norm buffers
+    (norm_write & call_active where the band has a norm region) inside
+    the source window [lb_src, lb_src + n_b - 1] (clamped to the
+    buffers) of a live fold call of an earlier band."""
+    q = {k: p[k].cpu().numpy() for k in
+         ("call_active", "call_norm_write", "call_lb_src", "fill_active",
+          "fill_fold")}
+    _, _, npad = norm_geometry(lm, start)
+    t = _band_table(lm, start)
+    n = np.array(t.n)
+    nwoff = np.array(t.nwoff)
+    C = channels
+    act = q["call_active"][:, :, :C]
+    live = ((q["fill_active"] & q["fill_fold"]).any(axis=3)[:, :, :C]
+            & act & (n > 1)[None, :, None])
+    src = q["call_lb_src"][:, :, :C]
+    fold = live.any(axis=2)
+    rlo = np.where(live, np.clip(src, 0, npad - 1), npad).min(axis=2)
+    rhi = np.where(live, np.clip(src + n[None, :, None] - 1, 0, npad - 1),
+                   -1).max(axis=2)
+    writes = (nwoff >= 0)[None] & (q["call_norm_write"][:, :, :C]
+                                   & act).any(axis=2)
+    wlo, whi = nwoff, nwoff + n - 1
+    earlier = np.tril(np.ones((N_BANDS, N_BANDS), bool), -1)  # [k, j]: j < k
+    hits = (fold[:, None, :] & earlier[None]
+            & (rlo[:, None, :] <= whi[None, :, None])
+            & (rhi[:, None, :] >= wlo[None, :, None])).any(axis=2)
+    ordered = fold | (writes & hits)
+    run = np.zeros(N_BANDS, bool)
+    run[start:end] = True
+    return np.where(run[None], 1 + ordered, 0).astype(np.int8)
 
 
 def _kernel():
     lib = _build.load("band_assembly")
     fn = lib.mousiki_band_assembly
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -392,15 +461,20 @@ def _check_kernel(p: dict, X, mats, frame: int, lm: int) -> int:
         if X.shape[0] and not p[key][0].is_contiguous():
             raise ValueError(f"band_assembly needs contiguous rows of each "
                              f"plane ({key})")
-    total = _op_offsets(lm)[1]
+    rows = _row_offsets(lm)[1]
     for op in mats:
-        if (op.dim() != 1 or op.numel() != total or op.device != X.device
-                or op.dtype != torch.float32):
+        ok = (isinstance(op, SparseOperators)
+              and all(isinstance(a, torch.Tensor) and a.is_contiguous()
+                      and tuple(a.shape) == (rows, NZ)
+                      and a.device == X.device and a.data_ptr() % 16 == 0
+                      for a in op)
+              and op.cols.dtype == torch.uint8
+              and op.vals.dtype == torch.float32)
+        if not ok:
             raise ValueError(
                 f"band_assembly on {X.device} takes the packed operators "
-                f"(packed_operators({frame})): {total} float32 values on "
-                f"{X.device}, got {tuple(op.shape)} {op.dtype} on "
-                f"{op.device}")
+                f"(packed_operators({frame})): SparseOperators of ({rows}, "
+                f"{NZ}) uint8 columns and float32 values on {X.device}")
     return F
 
 
@@ -430,8 +504,10 @@ def band_assembly(p: dict, X, mats, *, channels: int, frame: int, lm: int,
     with torch.cuda.device(dev):
         rc = fn(ctypes.addressof(planes),
                 ctypes.addressof(_band_table(lm, start)), X.data_ptr(),
-                pre.data_ptr(), post.data_ptr(), len(combos_for_m(1 << lm)),
-                S, channels, frame, npad, 22 << lm, start, end, F,
+                pre.cols.data_ptr(), pre.vals.data_ptr(),
+                post.cols.data_ptr(), post.vals.data_ptr(),
+                len(combos_for_m(1 << lm)), S, channels, frame, npad,
+                22 << lm, start, end, F,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"band_assembly kernel launch failed: cuda "

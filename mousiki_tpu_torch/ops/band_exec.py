@@ -53,8 +53,8 @@ def plan_combo_mats(channels: int, frame: int, device):
 
       * CPU: the stacks identity-padded to NBMAX, (21, NC, NBMAX, NBMAX)
         each, held in float64, for band_assembly_reference's gathers;
-      * CUDA: the kernel's packed float32 blocks, one 1-D tensor each
-        (band_assembly.packed_operators).
+      * CUDA: the kernel's packing of their nonzeros, a
+        band_assembly.SparseOperators each (packed_operators).
 
     Callers hand the pair to execute_packed on the same device."""
     dev = _device.as_device(device)

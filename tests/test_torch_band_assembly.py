@@ -9,17 +9,22 @@ stream and the two hybrid ones, whose calls start at band 17. Against
 band_exec_jax.execute_packed on the same arenas. Bar: the X plane within
 1e-5 (the bar of test_band_exec.py: f32 round-off on unit-norm spectra).
 
-The kernel reads the operators packed (band_assembly.packed_operators);
-their layout is held to the stacks the plain version reads, at every
-frame size. The kernel itself runs only on a GPU: a `cuda` test holds it
-to the plain version there, within KERNEL_TOL (both compute in float64
-and differ only in the order of a product's terms). The JAX package is imported inside the test
-that compares with it, so that the file imports where JAX is not (the
-GPU machine runs the `cuda` test: pytest -m cuda).
+The kernel reads the operators as their nonzeros
+(band_assembly.packed_operators); rebuilt dense, they are held to the
+stacks the plain version reads, at every frame size. It runs a stream's
+bands in two passes (band_assembly.band_passes); the premise of that
+split is held on golden, mono-arena and LM 0-2 plans: only the bands
+with a live fold fill are ordered, and no band of the parallel pass
+writes a norm position that an ordered band before it reads. The kernel
+itself runs only on a GPU: a `cuda` test holds it to the plain version
+there, within KERNEL_TOL (both compute in float64 and differ only in the
+order of a product's terms). The JAX package is imported inside the
+tests that compare with it, so that the file imports where JAX is not
+(the GPU machine runs the `cuda` test: pytest -m cuda).
 """
 
 import contextlib
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import pytest
@@ -122,6 +127,28 @@ def test_reference_matches_jax_on_mono_arenas(mono_arenas, frame):
     assert np.abs(got - want).max() <= TOL
 
 
+def _encoded_arenas(frame):
+    """(backing, x_direct) of plan arenas at `frame` (full profile) that
+    the golden stereo PCM makes when the port's CeltEncodePipeline
+    encodes it at S = 3 and the native host stage decodes it: the second
+    frame's (copies of one encode a frame size)."""
+    return tuple(a.copy() for a in _encode_once(frame))
+
+
+@lru_cache(maxsize=None)
+def _encode_once(frame):
+    S = 3
+    streams = load_stereo_celt()
+    enc = CeltEncodePipeline(S, 2, 96000, frame_size=frame, device="cpu")
+    host = NativeCeltHostBatch(S)
+    for f in range(2):
+        pcm = np.stack([st.pcm[f * frame:(f + 1) * frame]
+                        for st in streams]).astype(np.float32)
+        arenas, aux, _ = host.decode_plan_arenas(enc.step(pcm), frame)
+        assert (aux["rcs"] >= 0).all()
+    return arenas["backing"].copy(), aux["x_direct"].copy()
+
+
 @pytest.mark.parametrize("frame", [120, 240])
 def test_reference_matches_jax_on_short_frames(frame):
     """LM 0-1, which the golden streams do not reach: the golden stereo
@@ -134,15 +161,7 @@ def test_reference_matches_jax_on_short_frames(frame):
     from mousiki_tpu.ops import band_exec_jax
     lm = {120: 0, 240: 1}[frame]
     S = 3
-    streams = load_stereo_celt()
-    enc = CeltEncodePipeline(S, 2, 96000, frame_size=frame, device="cpu")
-    host = NativeCeltHostBatch(S)
-    for f in range(2):
-        pcm = np.stack([st.pcm[f * frame:(f + 1) * frame]
-                        for st in streams]).astype(np.float32)
-        arenas, aux, _ = host.decode_plan_arenas(enc.step(pcm), frame)
-        assert (aux["rcs"] >= 0).all()
-    backing, x_direct = arenas["backing"].copy(), aux["x_direct"].copy()
+    backing, x_direct = _encoded_arenas(frame)
     jp, *_ = jax.jit(partial(band_exec_jax.unpack_plan_arenas, channels=2,
                              frame=frame))(*_jax_split(backing, S, 2, frame))
     want = np.asarray(band_exec_jax.execute_packed(
@@ -161,29 +180,43 @@ def test_reference_matches_jax_on_short_frames(frame):
 
 
 @pytest.mark.parametrize("frame", [120, 240, 480, 960])
-def test_packed_operators_hold_the_stacks(frame):
-    """The kernel's operator blocks, column by column, are the stacks'
-    n_b x n_b blocks of every band and combo, in float32."""
+def test_packed_operators_hold_the_stacks_as_nonzeros(frame):
+    """The kernel's operator rows, rebuilt dense, are the stacks' n_b x
+    n_b blocks of every band and combo, bit for bit in float32: at most
+    NZ nonzeros a row, their columns ascending, then (0, 0.0) pads."""
     lm = {120: 0, 240: 1, 480: 2, 960: 3}[frame]
-    pre_all, post_all = plan_combo_mats_np(frame)
-    offs, total = band_assembly._op_offsets(lm)
+    offs, rows = band_assembly._row_offsets(lm)
     nc = len(combos_for_m(1 << lm))
-    assert pre_all.shape[1] == nc
     widths = band_assembly._band_widths(lm)
     packed = band_assembly.packed_operators(frame, "cpu")
-    for stack, ops in zip((pre_all, post_all), packed):
-        assert ops.dtype == torch.float32 and ops.shape == (total,)
-        ops = ops.numpy()
+    nz = band_assembly.NZ
+    for stack, ops in zip(plan_combo_mats_np(frame), packed):
+        assert stack.shape[1] == nc
+        assert ops.cols.dtype == torch.uint8
+        assert ops.vals.dtype == torch.float32
+        assert ops.cols.shape == ops.vals.shape == (rows, nz)
+        cols, vals = ops.cols.numpy().astype(np.int64), ops.vals.numpy()
+        on = vals != 0
+        # nonzeros first, in ascending column order, then pads
+        assert not (~on[:, :-1] & on[:, 1:]).any()
+        assert (cols[~on] == 0).all()
+        step = np.diff(cols, axis=1)
+        assert (step[on[:, 1:]] > 0).all()
         for i, n_b in enumerate(widths):
             if n_b == 1:
                 continue
-            for c in range(nc):
-                at = offs[i] + c * n_b * n_b
-                block = ops[at:at + n_b * n_b].reshape(n_b, n_b).T
-                np.testing.assert_array_equal(block, stack[i, c, :n_b, :n_b])
+            r = slice(offs[i], offs[i] + nc * n_b)
+            assert cols[r].max() < n_b
+            dense = np.zeros((nc * n_b, n_b), np.float32)
+            for k in range(nz):
+                at = on[r][:, k]
+                dense[np.flatnonzero(at), cols[r][at, k]] = vals[r][at, k]
+            np.testing.assert_array_equal(
+                dense.reshape(nc, n_b, n_b), stack[i, :, :n_b, :n_b])
     # the band table the kernel reads: the plain version's derivation
     table = band_assembly._band_table(lm, 0)
     assert list(table.n) == widths
+    assert list(table.row_off) == offs
     assert list(table.scale) == [
         float(np.float32(np.sqrt(n))) if n > 1 else 1.0 for n in widths]
 
@@ -203,6 +236,102 @@ def _stereo_plan(S=3, f=4):
     X = torch.as_tensor(np.random.default_rng(f).standard_normal(
         (S, 2 * FRAME)) * 0.1)
     return p, X
+
+
+def _split_plan(name, mono_arenas):
+    """(planes, channels, lm) of a plan the split is held on."""
+    if name == "stereo_frame4":
+        return _stereo_plan()[0], 2, 3
+    if name.startswith("mono_frame"):
+        backing, _ = mono_arenas[int(name[len("mono_frame"):])]
+        return (band_exec._normalize_plan(
+            _port_plan(backing, len(MONO_STREAMS), 1)), 1, 3)
+    frame = {"lm0": 120, "lm1": 240, "lm2": 480}[name]
+    backing, _ = _encoded_arenas(frame)
+    return (band_exec._normalize_plan(_port_plan(backing, 3, 2, frame)), 2,
+            int(name[2:]))
+
+
+def _live_fold(p, channels, lm):
+    """(S, 21, C): the calls with a live fold fill (a fill slot active and
+    folding on an active call of a band wider than one bin)."""
+    wide = np.array(band_assembly._band_widths(lm)) > 1
+    q = {k: p[k].numpy() for k in ("fill_active", "fill_fold",
+                                   "call_active")}
+    return ((q["fill_active"] & q["fill_fold"]).any(axis=3)
+            & q["call_active"])[:, :, :channels] & wide[None, :, None]
+
+
+def _norm_reads(p, s, i, slot, lm):
+    """The norm positions a fold call's source reads (in both buffers),
+    gathered position by position as the plain version gathers them."""
+    n_b = band_assembly._band_widths(lm)[i]
+    npad = band_assembly.norm_geometry(lm, 0)[2]
+    src = int(p["call_lb_src"][s, i, slot])
+    dup = p["call_dup"][s, i, slot].numpy()
+    pos = np.arange(n_b)
+    d_rel = pos - dup[0]
+    in_dup = (d_rel >= 0) & (d_rel < dup[2])
+    at = np.where(in_dup, src + np.clip(dup[1] + d_rel, 0, n_b - 1),
+                  src + pos)
+    return set(np.clip(at, 0, npad - 1).tolist())
+
+
+def _norm_writes(p, s, i, channels, lm):
+    """The norm positions band i of stream s writes (either buffer)."""
+    t = band_assembly._band_table(lm, 0)
+    on = (p["call_norm_write"][s, i, :channels]
+          & p["call_active"][s, i, :channels]).any()
+    if t.nwoff[i] < 0 or not on:
+        return set()
+    return set(range(t.nwoff[i], t.nwoff[i] + t.n[i]))
+
+
+@pytest.mark.parametrize("name", ["stereo_frame4", "mono_frame0",
+                                  "mono_frame3", "lm0", "lm1", "lm2"])
+def test_band_passes_order_exactly_the_live_fold_bands(name, mono_arenas):
+    """The kernel's split (band_assembly.band_passes) on CELT plans: the
+    ordered pass holds exactly the bands with a live fold fill, and no
+    band of the parallel pass writes a norm position that an ordered band
+    before it reads."""
+    p, C, lm = _split_plan(name, mono_arenas)
+    passes = band_assembly.band_passes(p, channels=C, lm=lm, start=0,
+                                       end=21)
+    live = _live_fold(p, C, lm)
+    S = passes.shape[0]
+    assert passes.shape == (S, 21) and (passes >= 1).all()
+    np.testing.assert_array_equal(passes == 2, live.any(axis=2))
+    for s in range(S):
+        for j in np.flatnonzero(passes[s] == 2):
+            reads = set().union(*(_norm_reads(p, s, j, slot, lm)
+                                  for slot in range(C) if live[s, j, slot]))
+            for k in range(j + 1, 21):
+                if passes[s, k] == 1:
+                    assert not reads & _norm_writes(p, s, k, C, lm), (s, j, k)
+
+
+def test_band_passes_force_a_band_that_writes_a_fold_source():
+    """A fold call whose source window is moved onto a later band's norm
+    region sends that band to the ordered pass too."""
+    p, _ = _stereo_plan()
+    lm = 3
+    passes = band_assembly.band_passes(p, channels=2, lm=lm, start=0,
+                                       end=21)
+    live = _live_fold(p, 2, lm)
+    t = band_assembly._band_table(lm, 0)
+    s, j, slot = (int(v) for v in np.argwhere(live)[0])
+    k = next(k for k in range(j + 1, 21)
+             if passes[s, k] == 1 and _norm_writes(p, s, k, 2, lm))
+    moved = {key: v.clone() for key, v in p.items()}
+    moved["call_lb_src"][s, j, slot] = t.nwoff[k]
+    assert _norm_reads(moved, s, j, slot, lm) & _norm_writes(moved, s, k, 2,
+                                                             lm)
+    after = band_assembly.band_passes(moved, channels=2, lm=lm, start=0,
+                                      end=21)
+    assert after[s, k] == 2 and after[s, j] == 2
+    # nothing else moves
+    after[s, k] = 1
+    np.testing.assert_array_equal(after, passes)
 
 
 def test_wrapper_takes_plain_version_on_cpu_and_refuses_bad_input():
@@ -257,8 +386,13 @@ def test_wrapper_takes_plain_version_on_cpu_and_refuses_bad_input():
     with pytest.raises(ValueError, match="takes the packed operators"):
         band_assembly._check_kernel(p, X, mats, FRAME, 3)
     with pytest.raises(ValueError, match="takes the packed operators"):
-        band_assembly._check_kernel(p, X, tuple(m.double() for m in packed),
-                                    FRAME, 3)
+        band_assembly._check_kernel(
+            p, X, tuple(band_assembly.SparseOperators(m.cols, m.vals.double())
+                        for m in packed), FRAME, 3)
+    with pytest.raises(ValueError, match="takes the packed operators"):
+        band_assembly._check_kernel(
+            p, X, tuple(band_assembly.SparseOperators(m.cols, m.vals[1:])
+                        for m in packed), FRAME, 3)
     with pytest.raises(ValueError, match="band range"):
         band_assembly.band_assembly(p, X, mats, **{**kw, "end": 22})
     with pytest.raises(ValueError, match="frame 120 << lm"):
