@@ -15,7 +15,7 @@ thing if any module of mousiki_tpu is loaded):
   1. device check: a CUDA device, its name and power limit (nvidia-smi);
   2. build, all at once: the three native host libraries (csrc/*.cpp,
      g++: celt_host, silk_host, opus_host), the fused de-emphasis kernel
-     (csrc/deemphasis.cu, nvcc), the two PVQ leaf kernels
+     (csrc/deemphasis.cu, nvcc), the PVQ leaf stage and walk kernels
      (csrc/pvq_leaves.cu), the band assembly kernel
      (csrc/band_assembly.cu) and the comb filter kernel
      (csrc/comb_filter.cu), each source with its build time;
@@ -34,20 +34,34 @@ thing if any module of mousiki_tpu is loaded):
      version's device time, both per-call CUDA-event times, and a copy
      floor (one out.copy_(x.transpose(1, 2)) moving the same bytes: a
      yardstick that does not compute the same function);
- 3b. the PVQ leaf kernels (ops/pvq_leaves.py: cwrs_walk, the CWRS walk,
-     and pvq_leaf_values, normalisation and spreading rotation) against
-     their plain versions on the card: (a) the golden stereo leaves at
-     S = 256 under the serving profile, frames 0, 4 and 11, all three
-     tiers; (b) seeded synthetic leaves of every tier (every (n, k) with
-     V(n, k) < 2^32, idx at 0, V - 1 and between, every spread, b in
-     {1, 2, 4, 8} where it divides n, inactive leaves); iy exactly equal,
-     values within 1e-5; then, at every width a path runs the stage (S =
-     256, 1024, 8, 3 and a mesh shard's) and on the synthetic leaves,
-     each tier's device time of each kernel (torch.profiler), its bound
-     (the bytes the launch must move over HBM bandwidth, the U-table
-     entries its leaves read counted once, against integer or float
-     operations over the fp32 peak), the plain version's device time and
-     CUDA-event times of a call of both;
+ 3b. the PVQ leaf kernels (ops/pvq_leaves.py: leaf_stage, the executor's
+     walk, normalisation, spreading rotation and placement of every leaf
+     in the X plane, one launch a step; cwrs_walk, the walk alone, the
+     lockstep plan emission's) against their plain versions on the card:
+     the stage on the golden stereo plans at S = 256 under the serving
+     profile (frames 0, 4 and 11), the mixed path's own mono plans
+     (frames 0 and 4), a tight profile's plan ((60, 20, 2), 2, 8: some
+     streams fall back to the direct decoder) and a plan of seeded
+     synthetic leaves of all three tiers (leaf_cases.synthetic_plan:
+     every (n, k) with V(n, k) < 2^32, idx at 0, V - 1 and between,
+     every spread, b in {1, 2, 4, 8} where it divides n, inactive
+     leaves, spans laid across the plane and cut at both of its edges)
+     and a plan of leaves past kmax(n) (leaf_cases.outside_leaves: the
+     kernels' descent over the full table): each tier's pulse vectors
+     exactly equal to the plain walk (through the kernel's pulse
+     output), X within 1e-5, exactly 0.0 where no leaf writes, and the
+     same X on planes whose streams lie further apart; the walk on every
+     tier of the golden frames and on each tier's synthetic and outside
+     leaves, iy exactly equal; then the device time
+     (torch.profiler) of the walk on each synthetic tier, of the stage on
+     the synthetic plan and on its tier 2 alone, and of the stage at
+     every (S, C) a path runs it (S = 256, 1024, 8, 3 and a mesh shard's,
+     stereo; 256 and a shard's, mono), each beside its bound (the bytes
+     it must move over HBM bandwidth: the planes read once, the U-table
+     entries its leaves read counted once, X written once where the
+     kernel writes it, against integer and float operations over the
+     fp32 peak), the plain version's device time and CUDA-event times of
+     a call of both;
  3c. the decode step's band assembly (ops/band_assembly.py, P3 of the
      executor, one launch a step) and comb filter
      (ops/synthesis.comb_filter_batched, two launches a step) against
@@ -88,11 +102,12 @@ thing if any module of mousiki_tpu is loaded):
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
      launched once a step by the path itself (launch counts reset just
-     before), each leaf kernel at most once a tier a step, the band
-     assembly kernel once and the comb filter kernel twice a step (on
+     before), the leaf stage kernel and the band assembly kernel once
+     and the comb filter kernel twice a step, the walk kernel never (on
      this and every other plan path below: phases 7, 13b, 22, 23, 25 and
-     26's lockstep probe; the comb filter alone on the non-plan paths of
-     phases 19 and 26's batch decode);
+     26's lockstep probe, where the plan emission launches the walk at
+     most once a tier a step; the comb filter alone on the non-plan
+     paths of phases 19 and 26's batch decode);
   5. loss: 256 streams with ~10% seeded packet loss, the first 8 streams
      against the port run on the CPU (5e-3 on lost and just-recovered
      frames, 2e-4 elsewhere); the batch check: the same 256 streams as
@@ -226,10 +241,10 @@ thing if any module of mousiki_tpu is loaded):
      (device-only trace: kernels, device busy time) of each width; the
      plan emission's three walk launches of the first step (its (S x CAP)
      planes, kept as it ran) again through the walk kernel, iy equal to
-     the plain walk, and timed as in phase 3b, and the first step's band
-     assembly and comb filter calls through their kernels against the
-     plain versions and timed as in phase 3c (the same for the lockstep
-     probe of phase 26);
+     the plain walk, and timed as in phase 3b, and the first step's leaf
+     stage, band assembly and comb filter calls through their kernels
+     against the plain versions and timed as in phases 3b and 3c (the
+     same for the lockstep probe of phase 26);
  23. the stream mesh (parallel/streaming.py): every card when there are
      two or more, else two shards on the one card
      (shards_on_one_card=true). CeltStreamPipeline(256, 2, mesh=...,
@@ -282,11 +297,11 @@ Any failure raises (exit code != 0). Lines before the last report each
 phase; the line before the last is the kernel table as JSON (one row for
 each path's shape, every number of a row measured at that shape, the
 device time with the input in L2 as the path leaves it and with L2
-evicted; for each leaf kernel, one row for each path that runs it, its
-numbers those of a step's launches at the path's width: the executor's
-three, and on the lockstep paths the plan emission's three walks; for the
+evicted; for the walk, one row for each lockstep path, its numbers those
+of a step's three launches in the plan emission; for the leaf stage, the
 band assembly and the comb filter, one row for each path that runs them,
-a step's launches at the path's width); the last
+a step's launches at the path's width, or the lockstep step's own); the
+last
 line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
@@ -315,7 +330,7 @@ import batch_stages
 from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
                             load_mono_mix, load_stereo_celt)
 from comb_cases import comb_calls, comb_rows
-from leaf_cases import synthetic_leaves
+from leaf_cases import outside_leaves, synthetic_leaves, synthetic_plan
 from mousiki_tpu_torch._device import operator64, require_cuda
 from mousiki_tpu_torch.ops import _build
 from mousiki_tpu_torch.ops import band_assembly as band_asm
@@ -390,30 +405,27 @@ BATCH_TOL = 1e-5
 MESH_TIMING_STEPS = 4
 F_MIXED_MESH = 6                # frames of the mixed mesh check
 # the PVQ leaf kernels against their plain versions: pulse vectors
-# exactly equal, values within the X plane's bar of
-# tests/test_band_exec.py and tests/test_torch_band_exec.py
+# exactly equal, X within the X plane's bar of tests/test_band_exec.py and
+# tests/test_torch_band_exec.py
 LEAF_TOL = 1e-5
 LEAF_FRAMES = (0, 4, 11)        # golden frames of the real-leaf check
 LEAF_TIMING_FRAME = 4
-LEAF_PLANES = ("active", "n", "k", "idx", "gain", "b", "spread")
-# the streams a path runs its leaf stage at: each path's leaves are
-# timed on the golden stereo leaves at that width
-LEAF_PATH_STREAMS = {"celt": S_MAIN, "mixed": S_MAIN,
-                     "celt_lockstep": S_MAIN, "celt_lockstep_mono": S_MAIN,
-                     "bench_e2e": S_MAIN, "bench_e2e_s1024": S_WIDE,
-                     "bench_gate": bench.GATE_STREAMS,
-                     "encode_quality": len(quality.CELT_RATES),
-                     "tool_bench_lockstep": S_MAIN}
+LEAF_PLANES = ("active", "n", "k", "idx", "gain", "b", "spread", "dst")
+# the walk alone, which only the lockstep plan emission launches (three
+# a step, one a tier): the reference's loop, the kernel's symbol
 LEAF_KERNELS = {
     "cwrs_walk": ("mousiki_tpu/ops/band_exec_jax.py:150",
                   "cwrs_walk_kernel"),
-    "pvq_leaf_values": ("mousiki_tpu/ops/band_exec_jax.py:280",
-                        "pvq_leaf_values_kernel"),
 }
-# the band assembly and the comb filter, the kernels a decode step
-# launches once (the executor's P3) and twice (its synthesis): the
-# reference's loop, the kernel's symbol, the source
+# the kernels a decode step launches once (the executor's leaf stage, its
+# P3 band assembly) and twice (the comb filter, in its synthesis): the
+# reference's loop, the kernel's symbol, the source; the leaf stage
+# replaces execute_packed's P1 + P2 block (cwrs_walk :150, rotate_leaves
+# :280, the normalisation and the pool -> X gather, :418-456)
 STEP_KERNELS = {
+    "pvq_leaf_stage": ("mousiki_tpu/ops/band_exec_jax.py:418",
+                       "pvq_leaf_stage_kernel",
+                       "mousiki_tpu_torch/csrc/pvq_leaves.cu"),
     "band_assembly": ("mousiki_tpu/ops/band_exec_jax.py:514",
                       "band_assembly_kernel",
                       "mousiki_tpu_torch/csrc/band_assembly.cu"),
@@ -530,7 +542,7 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def _device_ms(fn, reps: int = 20, match: str | None = None,
-               between=None) -> float:
+               between=None, device_only: bool = False) -> float:
     """Mean device time a call of `fn`: the summed durations of the CUDA
     kernels it runs (those whose name holds `match`, if given), under
     torch.profiler; apart from the host time between launches that CUDA
@@ -540,14 +552,19 @@ def _device_ms(fn, reps: int = 20, match: str | None = None,
     kernels a call runs; a window in which it saw under half of them is
     measured again. After three such windows (late in a run, after
     phases of a million launches, it has seen none for six windows in a
-    row) the calls are timed with CUDA events instead (_event_ms)."""
+    row) the calls are timed with CUDA events instead (_event_ms).
+    device_only: trace the card alone, not the host's operators (a
+    plain version of thousands of launches a call traces in a fraction
+    of the time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     for window in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA]
+        if not device_only:
+            activities.insert(0, ProfilerActivity.CPU)
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 if between is not None:
                     between()
@@ -556,7 +573,7 @@ def _device_ms(fn, reps: int = 20, match: str | None = None,
         us = [ev.time_range.elapsed_us() for ev in prof.events()
               if ev.device_type == cuda
               and (match is None or match in ev.name)]
-        if len(us) >= reps // 2:
+        if len(us) >= max(1, reps // 2):
             per_call = max(1, round(len(us) / reps))
             return sum(us) / len(us) * per_call / 1e3
         print(f"[profiler] window {window}: {len(us)} kernels seen in "
@@ -669,33 +686,36 @@ def _reset_launches() -> None:
 
 def _kernel_counts() -> dict:
     """The launch counts of the kernels a decode step runs besides the
-    de-emphasis: the leaf stage's, the band assembly's and the comb
-    filter's."""
-    return {"cwrs_walk": pvq.cwrs_walk_launches,
-            "pvq_leaf_values": pvq.pvq_leaf_values_launches,
+    de-emphasis: the leaf stage's, the walk's, the band assembly's and
+    the comb filter's."""
+    return {"pvq_leaf_stage": pvq.leaf_stage_launches,
+            "cwrs_walk": pvq.cwrs_walk_launches,
             "band_assembly": band_asm.band_assembly_launches,
             "comb_filter": synthesis.comb_filter_launches}
 
 
 def _path_launches(path: str, steps: int, got=None, after_each=None,
-                   calls_a_step: int = 1, walk_sites: int = 1,
+                   calls_a_step: int = 1, lockstep: bool = False,
                    executor: bool = True) -> dict:
     """The step kernels' launches `got` (default: the counts now) in a
     path's run of `steps` steps (counts reset just before it), kept for
-    the kernels line: each leaf kernel launched, and at most once a tier
-    in each step and each of its `calls_a_step` executor calls (mesh
-    shards), the walk in each of its `walk_sites` (the lockstep step
-    walks in its plan emission too); the band assembly exactly once and
-    the comb filter exactly twice in each step and call; counted after
-    each step where `after_each` holds the counts, else over the run. A
-    path without the plan executor (executor=False: the non-plan
-    decoders) is held to the comb filter's alone."""
+    the kernels line: the leaf stage and the band assembly exactly once
+    and the comb filter exactly twice in each step and each of its
+    `calls_a_step` executor calls (mesh shards); the walk launched, and
+    at most once a tier a step, on a lockstep path (its plan emission
+    walks), and never on another; counted after each step where
+    `after_each` holds the counts, else over the run. A path without the
+    plan executor (executor=False: the non-plan decoders) is held to the
+    comb filter's alone."""
     got = dict(_kernel_counts() if got is None else got)
     if not executor:
         got = {"comb_filter": got["comb_filter"]}
-    most = {"cwrs_walk": 3 * calls_a_step * walk_sites,
-            "pvq_leaf_values": 3 * calls_a_step}
-    exact = {"band_assembly": calls_a_step, "comb_filter": 2 * calls_a_step}
+    elif not lockstep:
+        check(got.pop("cwrs_walk") == 0,
+              f"{path}: the walk kernel launched outside a lockstep step")
+    most = {"cwrs_walk": 3 * calls_a_step}
+    exact = {"pvq_leaf_stage": calls_a_step, "band_assembly": calls_a_step,
+             "comb_filter": 2 * calls_a_step}
     for name, n in got.items():
         if after_each is None:
             per = [n / steps]
@@ -715,11 +735,11 @@ def _path_launches(path: str, steps: int, got=None, after_each=None,
     return got
 
 
-def _golden_leaves(dev, streams, S, frames):
-    """{frame: [per tier {plane: 1-D tensor}]}: the golden stereo
-    streams' leaf planes at S streams (stream s plays golden stream
-    s % 3), decoded by the native host stage under the current plan
-    profile and unpacked on the card."""
+def _golden_plans(dev, streams, S, frames):
+    """{frame: the executor's planes} of the golden stereo streams at S
+    streams (stream s plays golden stream s % 3), decoded by the native
+    host stage under the current plan profile and unpacked on the
+    card."""
     host = NativeCeltHostBatch(S)
     out = {}
     for f in range(max(frames) + 1):
@@ -732,10 +752,13 @@ def _golden_leaves(dev, streams, S, frames):
         p, *_ = band_exec.unpack_plan_arenas(
             *band_exec.split_backing(backing, channels=2, frame=FRAME,
                                      n_streams=S), channels=2, frame=FRAME)
-        p = band_exec._normalize_plan(p)
-        out[f] = [{name: p[f"pvq_{name}"][t].reshape(-1)
-                   for name in LEAF_PLANES} for t in range(3)]
+        out[f] = band_exec._normalize_plan(p)
     return out
+
+
+def _tier_leaves(p, t):
+    """One tier's leaf planes of a plan, 1-D."""
+    return {name: p[f"pvq_{name}"][t].reshape(-1) for name in LEAF_PLANES}
 
 
 def _walk_check(label, leaves, nmax):
@@ -749,57 +772,97 @@ def _walk_check(label, leaves, nmax):
     return iy
 
 
-def _leaf_check(label, leaves, nmax):
-    """Both kernels against the plain versions on one tier's leaves: iy
-    equal, values within LEAF_TOL. Returns the values' error."""
-    value_args = [leaves[x] for x in ("active", "n", "k", "gain", "b",
-                                      "spread")]
-    iy = _walk_check(label, leaves, nmax)
-    vals = pvq.pvq_leaf_values(iy, *value_args, nmax)
-    want = pvq.pvq_leaf_values_reference(iy, *value_args, nmax)
-    check(bool(torch.isfinite(vals).all()), f"{label}: values not finite")
-    err = (vals - want).abs().max().item()
-    check(err <= LEAF_TOL, f"{label}: pvq_leaf_values {err} from the plain "
+def _written(p, cols: int):
+    """(S, cols) bool: the points of X some active leaf writes, its
+    values at pvq_dst .. pvq_dst + n - 1 inside [0, cols)."""
+    dev = p["direct"].device
+    mask = torch.zeros((p["direct"].shape[0], cols), dtype=torch.bool,
+                       device=dev)
+    for t, (nmax, _) in enumerate(TIERS):
+        act, n, dst = (p[f"pvq_{x}"][t] for x in ("active", "n", "dst"))
+        i = torch.arange(nmax, device=dev)
+        pos = dst[..., None] + i
+        on = (act[..., None] & (i < n[..., None]) & (pos >= 0)
+              & (pos < cols))
+        rows = torch.arange(mask.shape[0], device=dev)[:, None, None]
+        mask[rows.expand_as(pos)[on], pos[on]] = True
+    return mask
+
+
+def _stage_planes(p, fn):
+    """p with fn applied to each tier's plane of every leaf plane the stage
+    reads."""
+    return {**p, **{f"pvq_{name}": [fn(t) for t in p[f"pvq_{name}"]]
+                    for name, _ in pvq.STAGE_PLANES}}
+
+
+def _stage_check(label, p, channels):
+    """The stage kernel against its plain version on one plan: each
+    tier's pulse vectors (the kernel's pulse output) equal, X within
+    LEAF_TOL and exactly 0.0 where no leaf writes, and X equal when the
+    planes' streams lie further apart. Returns [streams, active leaves,
+    the largest error]."""
+    X, iys = pvq.leaf_stage(p, channels=channels, frame=FRAME, pulses=True)
+    want, want_iys = pvq.leaf_stage_reference(p, channels=channels,
+                                              frame=FRAME, pulses=True)
+    for t, (iy, want_iy) in enumerate(zip(iys, want_iys)):
+        check(torch.equal(iy, want_iy), f"{label} tier {t}: pulses differ "
+              f"from the plain walk in "
+              f"{int((iy != want_iy).any(dim=1).sum())} leaves")
+    check(bool(torch.isfinite(X).all()), f"{label}: X not finite")
+    err = (X - want).abs().max().item()
+    check(err <= LEAF_TOL, f"{label}: leaf_stage {err} from the plain "
           f"version (bar {LEAF_TOL})")
-    return err
+    idle = ~_written(p, channels * FRAME)
+    check(not bool(X[idle].any()) and not bool(want[idle].any()),
+          f"{label}: X not 0.0 where no leaf writes")
+    gapped = pvq.leaf_stage(_stage_planes(p, _gapped), channels=channels,
+                            frame=FRAME)
+    check(torch.equal(gapped, X), f"{label}: leaf_stage differs on planes "
+          f"whose streams lie further apart")
+    return [p["direct"].shape[0], sum(int(a.sum()) for a in p["pvq_active"]),
+            err]
+
+
+def _table_reads(tiers) -> tuple[int, int]:
+    """(entries, reads) of the U table in the walks of these leaves, tiers
+    a list of (iy (leaves, nmax), n): each entry some leaf reads counted
+    once. At position j < n - 1, while k_j pulses are left, a leaf that
+    places q_j there reads U(n - j, k_j + 1) and U(n - j, k_j - q_j ..
+    k_j): q_j + 2 reads."""
+    runs = np.zeros((U_N, U_K + 1), np.int64)
+    reads = 0
+    for iy, n in tiers:
+        a = np.abs(iy).astype(np.int64)
+        left = a.sum(axis=1, keepdims=True) - np.cumsum(a, axis=1) + a
+        visit = ((np.arange(iy.shape[1])[None, :] < (n - 1)[:, None])
+                 & (left > 0))
+        leaf, j = np.nonzero(visit)
+        row, q, kj = n[leaf] - j, a[leaf, j], left[leaf, j]
+        # the entries read, as runs [kj - q, kj + 1] of a row: a
+        # difference array a row
+        np.add.at(runs, (row, kj - q), 1)
+        np.add.at(runs, (row, kj + 2), -1)
+        reads += int((q + 2).sum())
+    return int((np.cumsum(runs, axis=1) > 0).sum()), reads
 
 
 def walk_work(iy: np.ndarray, n: np.ndarray) -> tuple[int, int]:
     """(bytes, operations) the walk of these leaves needs, from its
     output iy (leaves, nmax): each plane read once (1 + 3 x 8 bytes a
-    leaf), iy written once, and each U-table entry some leaf reads, once.
-    At position j < n - 1, while k_j pulses are left, a leaf that places
-    q_j there reads U(n - j, k_j + 1) and U(n - j, k_j - q_j .. k_j);
-    three integer operations a read (load, compare, subtract)."""
-    leaves, nmax = iy.shape
-    a = np.abs(iy).astype(np.int64)
-    left = a.sum(axis=1, keepdims=True) - np.cumsum(a, axis=1) + a
-    visit = (np.arange(nmax)[None, :] < (n - 1)[:, None]) & (left > 0)
-    leaf, j = np.nonzero(visit)
-    row, q, kj = n[leaf] - j, a[leaf, j], left[leaf, j]
-    # the entries read, as runs [kj - q, kj + 1] of a row: a difference
-    # array a row
-    runs = np.zeros((U_N, U_K + 1), np.int64)
-    np.add.at(runs, (row, kj - q), 1)
-    np.add.at(runs, (row, kj + 2), -1)
-    entries = int((np.cumsum(runs, axis=1) > 0).sum())
-    nbytes = leaves * 25 + 4 * entries + iy.nbytes
-    return nbytes, 3 * int((q + 2).sum())
+    leaf), iy written once, and each U-table entry some leaf reads, once
+    (_table_reads); three integer operations a read (load, compare,
+    subtract)."""
+    entries, reads = _table_reads([(iy, n)])
+    return iy.shape[0] * 25 + 4 * entries + iy.nbytes, 3 * reads
 
 
-def values_work(active, n, k, b, spread, nmax: int) -> tuple[int, int]:
-    """(bytes, operations) of the values kernel on these leaves: iy and
-    the six planes read once (4 nmax + 37 bytes a leaf), the values
-    written once (4 nmax); 3 nmax flops a leaf for the normalisation
-    (square, add, scale) and 6 a rotation step (two products and a sum
-    for each of the pair's two new values), each pass of a chain
-    sweeping len - stride steps forward and len - 2 stride back."""
-    active, n, k = np.asarray(active, bool), np.asarray(n), np.asarray(k)
-    b, spread = np.asarray(b), np.asarray(spread)
-    leaves = n.size
-    nbytes = leaves * (8 * nmax + 37)
-    flops = 3 * nmax * leaves
+def _rotation_flops(active, n, k, b, spread, nmax: int) -> int:
+    """6 flops a rotation step (two products and a sum for each of the
+    pair's two new values), each pass of a chain sweeping len - stride
+    steps forward and len - 2 stride back."""
     rot = active & (2 * k < n) & (spread != 0) & (n <= nmax)
+    flops = 0
     for nn, bb in zip(n[rot].tolist(), b[rot].tolist()):
         stride = max(bb, 1)
         st2 = 0
@@ -812,15 +875,39 @@ def values_work(active, n, k, b, spread, nmax: int) -> tuple[int, int]:
         if st2:
             steps += max(ln - st2, 0) + max(ln - 2 * st2, 0)
         flops += 6 * steps * stride
-    return nbytes, flops
+    return flops
+
+
+def leaf_stage_work(p, channels: int, iys) -> tuple[int, int]:
+    """(bytes, operations) of the stage kernel on this plan. Bytes: every
+    leaf plane read once (53 bytes a slot: a flag, six int64 planes, the
+    float32 gain), each U-table entry some leaf's descent reads once
+    (_table_reads over all tiers), X written once where the kernel writes
+    it (8 bytes a point some active leaf places, _written; the zeroing of
+    the rest is another kernel, not timed with this one); operations:
+    three integer operations a table read, 3 flops a value of a walked
+    leaf for the normalisation and the rotation's (_rotation_flops)."""
+    tiers = [{k: v.cpu().numpy() for k, v in _tier_leaves(p, t).items()}
+             for t in range(len(TIERS))]
+    iys = [iy.cpu().numpy() for iy in iys]
+    entries, reads = _table_reads([(iy, d["n"]) for iy, d in zip(iys, tiers)])
+    nbytes = (53 * sum(d["n"].size for d in tiers) + 4 * entries
+              + 8 * int(_written(p, channels * FRAME).sum()))
+    ops = 3 * reads
+    for d, (nmax, _) in zip(tiers, TIERS):
+        walked = d["active"] & (d["n"] >= 1) & (d["n"] <= nmax)
+        ops += 3 * int(d["n"][walked].sum()) + _rotation_flops(
+            d["active"], d["n"], d["k"], d["b"], d["spread"], nmax)
+    return nbytes, ops
 
 
 def _kernel_times(name, fn, plain, nbytes: int, ops: int,
-                  peak: float = FP32_FLOPS) -> dict:
+                  peak: float = FP32_FLOPS, plain_reps: int = 2) -> dict:
     """One kernel's device time a launch (torch.profiler), its bound
     (bytes over HBM bandwidth against operations over `peak`, the fp32
     peak by default), the plain version's device time and CUDA-event
-    times of a call of both."""
+    times of a call of both (the plain version's over `plain_reps`
+    calls)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     ms = _device_ms(fn, match=KERNEL_SYMBOLS[name])
@@ -828,36 +915,39 @@ def _kernel_times(name, fn, plain, nbytes: int, ops: int,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, operations=ops,
                 bound_share=max(t_bytes, t_ops) / ms,
-                plain_ms=_device_ms(plain, reps=2),
-                call_ms=_cuda_ms(fn, 100), plain_call_ms=_cuda_ms(plain, 2))
+                plain_ms=_device_ms(plain, reps=plain_reps,
+                                    device_only=True),
+                call_ms=_cuda_ms(fn, 100),
+                plain_call_ms=_cuda_ms(plain, plain_reps))
 
 
 def _walk_times(leaves, nmax):
     walk_args = [leaves[x] for x in ("active", "n", "k", "idx")]
     iy = pvq.cwrs_walk(*walk_args, nmax)
+    # the plain walk is nmax + 12 steps of ~40 launches: one call
     return _kernel_times(
         "cwrs_walk", partial(pvq.cwrs_walk, *walk_args, nmax),
         partial(pvq.cwrs_walk_reference, *walk_args, nmax),
-        *walk_work(iy.cpu().numpy(), leaves["n"].cpu().numpy()))
+        *walk_work(iy.cpu().numpy(), leaves["n"].cpu().numpy()),
+        plain_reps=1)
 
 
-def _leaf_times(leaves, nmax):
-    """The times and bounds of one tier's launch of each kernel."""
-    value_args = [leaves[x] for x in ("active", "n", "k", "gain", "b",
-                                      "spread")]
-    iy = pvq.cwrs_walk(*[leaves[x] for x in ("active", "n", "k", "idx")],
-                       nmax)
-    cpu = {k: v.cpu().numpy() for k, v in leaves.items()}
-    return {"leaves": len(cpu["n"]), "nmax": nmax,
-            "active": int(cpu["active"].sum()),
-            "cwrs_walk": _walk_times(leaves, nmax),
-            "pvq_leaf_values": _kernel_times(
-                "pvq_leaf_values",
-                partial(pvq.pvq_leaf_values, iy, *value_args, nmax),
-                partial(pvq.pvq_leaf_values_reference, iy, *value_args,
-                        nmax),
-                *values_work(cpu["active"], cpu["n"], cpu["k"], cpu["b"],
-                             cpu["spread"], nmax))}
+def _stage_times(p, channels):
+    """The stage kernel's times on one plan (its one launch; the X
+    plane's zeroing before it is another kernel), its bound, the plain
+    version's times."""
+    _, iys = pvq.leaf_stage(p, channels=channels, frame=FRAME, pulses=True)
+    nbytes, ops = leaf_stage_work(p, channels, iys)
+    # the plain version is some 11,000 launches: one call
+    row = _kernel_times(
+        "pvq_leaf_stage",
+        partial(pvq.leaf_stage, p, channels=channels, frame=FRAME),
+        partial(pvq.leaf_stage_reference, p, channels=channels,
+                frame=FRAME), nbytes, ops, plain_reps=1)
+    row.update(shape=[p["direct"].shape[0], channels,
+                      [int(a.shape[1]) for a in p["pvq_active"]]],
+               active=[int(a.sum()) for a in p["pvq_active"]])
+    return row
 
 
 def _step_sums(rows, name, max_abs_err):
@@ -910,68 +1000,104 @@ def _emission_walk_times(path, calls):
     EMISSION_WALK[path] = _step_sums(rows, "cwrs_walk", 0.0)
 
 
-def _rows_of(leaves, S):
-    """The same leaf planes at S streams: stream s plays golden stream
-    s % 3, as in the S_MAIN planes the rows come from."""
-    dev = leaves[0]["n"].device
-    rows = torch.arange(S, device=dev) % 3
-    out = []
-    for t in range(3):
-        slots = leaves[t]["n"].numel() // S_MAIN
-        sel = (rows[:, None] * slots
-               + torch.arange(slots, device=dev)[None, :]).reshape(-1)
-        out.append({k: v[sel].contiguous() for k, v in leaves[t].items()})
-    return out
+def _plan_at(p, S, period):
+    """The leaf planes of plan p (S_MAIN streams, stream s playing golden
+    stream s % period) at S streams: stream s takes row s % period."""
+    rows = torch.arange(S, device=p["direct"].device) % period
+    return {"direct": p["direct"][rows],
+            **{f"pvq_{name}": [t[rows] for t in p[f"pvq_{name}"]]
+               for name, _ in pvq.STAGE_PLANES}}
 
 
-def phase_leaf_kernels(dev, streams, widths):
-    """cwrs_walk and pvq_leaf_values against their plain versions on the
-    card: (a) the golden stereo leaves at S = 256 under the serving
-    profile, frames 0, 4 and 11, every tier; (b) seeded synthetic leaves
-    (leaf_cases.synthetic_leaves) of every tier. Then the times and
-    bounds of a step's three launches of each at every width in `widths`
-    (the streams of a path's step or of a mesh shard's). Returns {S:
-    {kernel: sums over the tiers}}."""
-    golden = _golden_leaves(dev, streams, S_MAIN, LEAF_FRAMES)
-    worst = 0.0
-    checked = 0
+def _device_plan(planes, dev):
+    """leaf_cases.synthetic_plan's numpy planes as tensors on `dev`."""
+    return {k: ([torch.as_tensor(t, device=dev) for t in v]
+                if isinstance(v, list) else torch.as_tensor(v, device=dev))
+            for k, v in planes.items()}
+
+
+def phase_leaf_kernels(dev, streams, mono, widths):
+    """The leaf stage kernel against its plain version on the card
+    (_stage_check: iy exactly equal through the kernel's pulse output, X
+    within LEAF_TOL and 0.0 where no leaf writes, the same X on planes
+    whose streams lie further apart) on the golden stereo plans at S =
+    256 under the serving profile (frames 0, 4 and 11), the mixed path's
+    own mono plans (frames 0 and 4), a tight profile's plan, and a plan
+    of the synthetic leaves of all three tiers (leaf_cases.
+    synthetic_plan: every (n, k) with V(n, k) < 2^32, spans laid across
+    the plane and cut at both of its edges); the walk kernel against the
+    plain walk on every tier of those golden frames and on each tier's
+    synthetic leaves. Then the times and bounds of the walk on each
+    synthetic tier, of the stage on the synthetic plan and on its tier 2
+    alone, and of the stage at every (S, C) in `widths` (golden frame 4,
+    or the mixed path's frame 4 for C = 1). Returns {(S, C): the stage's
+    row}."""
+    golden = _golden_plans(dev, streams, S_MAIN, LEAF_FRAMES)
+    plans = {f"celt_frame{f}": (golden[f], 2) for f in LEAF_FRAMES}
+    mixed = OpusStreamPipeline(S_MAIN, channels=1, device=dev)
+    for f in range(max(MIXED_FRAMES) + 1):
+        with _kept_calls(band_exec, "leaf_stage", 1) as calls:
+            mixed.step(frame_batch(mono, S_MAIN, f, packets=True))
+        if f in MIXED_FRAMES:
+            (p,), kw = calls[0]
+            plans[f"mixed_frame{f}"] = (p, kw["channels"])
+    del mixed
+    set_plan_profile(*TIGHT_PROFILE)
+    try:
+        plans["tight_frame0"] = (_golden_plans(dev, streams, S_MAIN,
+                                               (0,))[0], 2)
+    finally:
+        set_plan_profile(*SERVING_PROFILE)
+    check(bool(plans["tight_frame0"][0]["direct"].any()),
+          "the tight profile sent no stream to the direct decoder")
+    synthetic = _device_plan(synthetic_plan(seed=100), dev)
+    plans["synthetic"] = (synthetic, 2)
+    # leaves past kmax(n): the kernel's descent over the full table
+    plans["outside"] = (_device_plan(synthetic_plan(
+        seed=200, source=outside_leaves), dev), 2)
+    checked = {label: _stage_check(label, p, C)
+               for label, (p, C) in plans.items()}
+    worst = max(v[2] for v in checked.values())
+    walked = 0
     for f in LEAF_FRAMES:
         for t, (nmax, _) in enumerate(TIERS):
-            worst = max(worst, _leaf_check(f"frame {f} tier {t}",
-                                           golden[f][t], nmax))
-            checked += int(golden[f][t]["active"].sum())
-    syn_worst = 0.0
-    syn_count = 0
-    synthetic = []
+            _walk_check(f"frame {f} tier {t}", _tier_leaves(golden[f], t),
+                        nmax)
+            walked += int(golden[f]["pvq_active"][t].sum())
+    leaves = []
     for t, (nmax, _) in enumerate(TIERS):
         d = synthetic_leaves(nmax, seed=100 + t)
-        leaves = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
-        syn_worst = max(syn_worst, _leaf_check(f"synthetic tier {t}",
-                                               leaves, nmax))
-        syn_count += len(d["n"])
-        synthetic.append(leaves)
-    active = {f"frame{f}": [int(golden[f][t]["active"].sum())
-                            for t in range(3)] for f in LEAF_FRAMES}
-    say("leaf_kernels", golden_active_leaves=checked,
-        golden_active_by_tier=active,
-        golden_worst_value_err=worst, synthetic_leaves=syn_count,
-        synthetic_worst_value_err=syn_worst, iy="equal", bar=LEAF_TOL)
+        leaves.append({k: torch.as_tensor(v, device=dev)
+                       for k, v in d.items()})
+        _walk_check(f"synthetic tier {t}", leaves[-1], nmax)
+        walked += int(d["active"].sum())
+        d = outside_leaves(nmax, seed=200 + t)
+        _walk_check(f"outside tier {t}", {
+            k: torch.as_tensor(v, device=dev) for k, v in d.items()}, nmax)
+        walked += int(d["active"].sum())
+    say("leaf_kernels", stage_cases=checked, stage_worst_err=worst,
+        iy="equal", bar=LEAF_TOL, walk_checked_active_leaves=walked)
     # every tier with active leaves of every (n, k): what a tier the
     # golden frames leave idle would cost
     for t, (nmax, _) in enumerate(TIERS):
-        say(f"leaf_times_synthetic_tier{t}", **_leaf_times(synthetic[t],
-                                                           nmax))
+        say(f"walk_times_synthetic_tier{t}", leaves=leaves[t]["n"].numel(),
+            nmax=nmax, active=int(leaves[t]["active"].sum()),
+            **_walk_times(leaves[t], nmax))
+    say("stage_times_synthetic", **_stage_times(synthetic, 2))
+    tier2 = _stage_planes(synthetic, lambda t: t)
+    for name, _ in pvq.STAGE_PLANES:
+        planes = tier2[f"pvq_{name}"]
+        tier2[f"pvq_{name}"] = [t[:, :0] for t in planes[:2]] + planes[2:]
+    say("stage_times_synthetic_tier2", **_stage_times(tier2, 2))
+    base = {2: (golden[LEAF_TIMING_FRAME], 3),
+            1: (plans[f"mixed_frame{LEAF_TIMING_FRAME}"][0], len(mono))}
     table = {}
-    base = golden[LEAF_TIMING_FRAME]
-    for S in sorted(widths):
-        tiers = base if S == S_MAIN else _rows_of(base, S)
-        rows = [_leaf_times(tiers[t], nmax)
-                for t, (nmax, _) in enumerate(TIERS)]
-        for t, row in enumerate(rows):
-            say(f"leaf_times_S{S}_tier{t}", **row)
-        table[S] = {name: _step_sums(rows, name, 0.0 if name == "cwrs_walk"
-                                     else max(worst, syn_worst))
-                    for name in LEAF_KERNELS}
+    for S, C in sorted(widths):
+        p, period = base[C]
+        row = _stage_times(p if S == S_MAIN else _plan_at(p, S, period), C)
+        row.update(max_abs_err=worst)
+        say(f"stage_times_S{S}_C{C}", **row)
+        table[(S, C)] = row
     return table
 
 
@@ -982,14 +1108,16 @@ def _cloned(v):
         return v.clone()
     if isinstance(v, dict):
         return {k: _cloned(t) for k, t in v.items()}
+    if isinstance(v, list):
+        return [_cloned(t) for t in v]
     return v
 
 
 @contextlib.contextmanager
 def _kept_calls(module, attr: str, limit: int):
     """Keep copies of the arguments of the first `limit` calls of
-    module.attr made inside (tensors, and dicts of them, cloned before
-    the call runs): a list of (args, kwargs)."""
+    module.attr made inside (tensors, and dicts and lists of them, cloned
+    before the call runs): a list of (args, kwargs)."""
     calls = []
     fn = getattr(module, attr)
 
@@ -1008,11 +1136,12 @@ def _kept_calls(module, attr: str, limit: int):
 
 @contextlib.contextmanager
 def _step_calls():
-    """The first band assembly call and the first two comb filter calls
-    (one decode step's) made inside."""
-    with _kept_calls(band_exec, "band_assembly", 1) as assembled, \
+    """The first leaf stage and band assembly calls and the first two comb
+    filter calls (one decode step's) made inside."""
+    with _kept_calls(band_exec, "leaf_stage", 1) as staged, \
+            _kept_calls(band_exec, "band_assembly", 1) as assembled, \
             _kept_calls(synthesis, "comb_filter_batched", 2) as combed:
-        yield assembled, combed
+        yield staged, assembled, combed
 
 
 def _record_frames() -> None:
@@ -1211,17 +1340,21 @@ def _comb_times(calls):
     return out
 
 
-def _own_step_rows(path, assembled, combed):
-    """A lockstep path's first step: its own band assembly call and comb
-    filter calls through the kernels against the plain versions, and
-    their times, kept for the path's kernels rows."""
-    check(len(assembled) == 1 and len(combed) == 2,
-          f"{path}: {len(assembled)} band assembly and {len(combed)} comb "
-          f"filter calls seen in a step")
+def _own_step_rows(path, staged, assembled, combed):
+    """A lockstep path's first step: its own leaf stage, band assembly and
+    comb filter calls through the kernels against the plain versions,
+    and their times, kept for the path's kernels rows."""
+    check(len(staged) == 1 and len(assembled) == 1 and len(combed) == 2,
+          f"{path}: {len(staged)} leaf stage, {len(assembled)} band "
+          f"assembly and {len(combed)} comb filter calls seen in a step")
+    (p,), kw = staged[0]
+    stage_err = _stage_check(f"{path} leaf stage", p, kw["channels"])
     err = _assembly_check(f"{path} band assembly", assembled[0])
     ulps = [_comb_check(f"{path} comb call {k}", c)
             for k, c in enumerate(combed)]
-    rows = {"band_assembly": dict(_assembly_times(assembled[0]),
+    rows = {"pvq_leaf_stage": dict(_stage_times(p, kw["channels"]),
+                                   max_abs_err=stage_err[2]),
+            "band_assembly": dict(_assembly_times(assembled[0]),
                                   max_abs_err=err[3], f32_flips=err[4]),
             "comb_filter": dict(_comb_times(combed),
                                 max_abs_err=max(u[0] for u in ulps),
@@ -1370,7 +1503,7 @@ def phase_step_kernels(dev, streams, mono, widths):
     golden_lags = []
     pipe = CeltStreamPipeline(S_MAIN, channels=2, use_plan=True, device=dev)
     for f in range(max(ASSEMBLY_FRAMES) + 1):
-        with _step_calls() as (a, c):
+        with _step_calls() as (_, a, c):
             pipe.step(frame_batch(streams, S_MAIN, f), FRAME)
         golden_lags += c if f else []
         if f in ASSEMBLY_FRAMES:
@@ -1380,7 +1513,7 @@ def phase_step_kernels(dev, streams, mono, widths):
     del pipe
     mixed = OpusStreamPipeline(S_MAIN, channels=1, device=dev)
     for f in range(max(MIXED_FRAMES) + 1):
-        with _step_calls() as (a, c):
+        with _step_calls() as (_, a, c):
             mixed.step(frame_batch(mono, S_MAIN, f, packets=True))
         if f in MIXED_FRAMES:
             assembled[f"mixed_frame{f}"] = a[0]
@@ -2680,7 +2813,7 @@ def phase_lockstep(dev, streams, mono):
                 step_ms.append(prof["profiled_wall_ms"])
             else:
                 with _StageTimer() as stages, _emission_walks() as walks, \
-                        _step_calls() as (assembled, combed):
+                        _step_calls() as (staged, assembled, combed):
                     t = time.perf_counter()
                     out.append(step(f))
                     torch.cuda.synchronize()
@@ -2701,10 +2834,10 @@ def phase_lockstep(dev, streams, mono):
         n = deemph.deemphasis_launches
         check(after == list(range(1, F + 1)),
               f"{name}: deemphasis launches after each step {after}")
-        # the walk runs in the plan emission and in the executor
-        leaf = _path_launches(name, F, after_each=leaf_after, walk_sites=2)
+        # the walk runs in the plan emission
+        leaf = _path_launches(name, F, after_each=leaf_after, lockstep=True)
         _emission_walk_times(name, walks)
-        _own_step_rows(name, assembled, combed)
+        _own_step_rows(name, staged, assembled, combed)
         launches[name] = n
         say(f"lockstep_{name}", streams=S, channels=C, frames=F,
             worst_abs_err_vs_golden=worst, bar=GOLDEN_TOL,
@@ -3123,13 +3256,14 @@ def _entry_bench_lockstep(dev, card):
     trial of one step; against the plan pipeline's first step."""
     probe = load_script("tools/torch_bench_lockstep.py")
     _reset_launches()
-    with _emission_walks() as walks, _step_calls() as (assembled, combed):
+    with _emission_walks() as walks, \
+            _step_calls() as (staged, assembled, combed):
         res = probe.run(S_MAIN, device=dev, iters=1, trials=1)
     torch.cuda.synchronize()
     launches = deemph.deemphasis_launches
-    leaf = _path_launches("tool_bench_lockstep", 2, walk_sites=2)
+    leaf = _path_launches("tool_bench_lockstep", 2, lockstep=True)
     _emission_walk_times("tool_bench_lockstep", walks)
-    _own_step_rows("tool_bench_lockstep", assembled, combed)
+    _own_step_rows("tool_bench_lockstep", staged, assembled, combed)
     check(launches == 2, f"lockstep probe: {launches} deemphasis launches "
           "in 2 steps: one a step expected")
     n_ok = int(res["ok"].sum())
@@ -3206,10 +3340,8 @@ def main() -> int:
     mono = load_mono_mix()
     set_plan_profile(*SERVING_PROFILE)
     shard = s_mesh // mesh.size
-    leaf_table = _phase("leaf_kernels", phase_leaf_kernels, dev, streams,
-                        set(LEAF_PATH_STREAMS.values()) | {shard})
-    # (S, C) of each path's decode step, for the band assembly and comb
-    # filter rows (the lockstep paths' rows time their own calls)
+    # (S, C) of each path's decode step, for the leaf stage, band assembly
+    # and comb filter rows (the lockstep paths' rows time their own calls)
     step_widths = {"celt": (S_MAIN, 2), "mixed": (S_MAIN, 1),
                    "celt_lockstep": (S_MAIN, 2),
                    "celt_lockstep_mono": (S_MAIN, 1),
@@ -3221,12 +3353,14 @@ def main() -> int:
                    "celt_python_host": (S_PYHOST, 2),
                    "example_batch_decode": (S_EXAMPLE, 2)}
     no_executor = {"celt_python_host", "example_batch_decode"}
+    executor_widths = {w for path, w in step_widths.items()
+                       if path not in no_executor}
+    leaf_table = _phase("leaf_kernels", phase_leaf_kernels, dev, streams,
+                        mono, executor_widths)
     step_table = _phase("step_kernels", phase_step_kernels, dev, streams,
-                        mono, {
-                            "band_assembly": {w for path, w in
-                                              step_widths.items()
-                                              if path not in no_executor},
-                            "comb_filter": set(step_widths.values())})
+                        mono, {"band_assembly": executor_widths,
+                               "comb_filter": set(step_widths.values())})
+    step_table["pvq_leaf_stage"] = leaf_table
     _record_frames()
     n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
     _phase("loss", phase_loss, dev, streams)
@@ -3287,41 +3421,25 @@ def main() -> int:
              n_entry["example_batch_decode"]),
             ("tool_bench_lockstep", CELT_SHAPE,
              n_entry["tool_bench_lockstep"]))]}
-    # one row for each leaf kernel and path that runs it: the path's
-    # launches beside the times of all its launches in a step: the
-    # executor's three (one a tier) at the path's width, measured by
-    # phase 3b, and on the lockstep paths the plan emission's three walks
-    # too, measured on that run's planes
-    widths = dict(LEAF_PATH_STREAMS, celt_mesh=shard, mixed_mesh=shard)
-
-    def step_row(path, name):
-        row = leaf_table[widths[path]][name]
-        emitted = EMISSION_WALK.get(path) if name == "cwrs_walk" else None
-        if emitted is None:
-            return row
-        both = [row, emitted]
-        return {"shape": row["shape"] + emitted["shape"],
-                "max_abs_err": row["max_abs_err"],
-                "bound_by": max(both, key=lambda r: r["bound_ms"])[
-                    "bound_by"],
-                **{key: row[key] + emitted[key]
-                   for key in ("ms", "plain_ms", "bound_ms")}}
-
+    # one row for the walk on each lockstep path: the path's launches
+    # beside the times of its plan emission's three launches (one a tier)
+    # in a step, measured on that run's planes
     kernels["kernels"] += [{
         "name": name, "route": "cuda",
         "source": "mousiki_tpu_torch/csrc/pvq_leaves.cu",
         "replaces": LEAF_KERNELS[name][0], "path": path,
         "launches": counts[name],
-        **{key: step_row(path, name)[key]
+        **{key: EMISSION_WALK[path][key]
            for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by")},
-        # no PyTorch call decodes CWRS or applies the spreading rotation
+        # no PyTorch call decodes CWRS
         "library_ms": None}
         for path, counts in PATH_LAUNCHES.items() for name in LEAF_KERNELS
         if name in counts]
     # one row for each step kernel and path that runs it: the path's
     # launches beside the times of a step's launches at the path's width
-    # (phase 3c), or of the lockstep step's own calls (phases 22, 26)
+    # (phases 3b and 3c), or of the lockstep step's own calls (phases 22,
+    # 26)
 
     def own_row(path, name):
         own = OWN_STEP_ROWS.get(path)
@@ -3334,7 +3452,8 @@ def main() -> int:
         **{key: own_row(path, name)[key]
            for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by")},
-        # no PyTorch call assembles CELT bands or runs the comb filter
+        # no PyTorch call decodes CWRS, applies the spreading rotation,
+        # assembles CELT bands or runs the comb filter
         "library_ms": None}
         for path, counts in PATH_LAUNCHES.items() for name in STEP_KERNELS
         if name in counts]

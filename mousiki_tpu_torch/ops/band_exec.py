@@ -5,9 +5,10 @@ For S streams at once, everything `bands.quant_all_bands` (decode side)
 does to the signal after the symbols are known:
 
   P1  CWRS index -> pulse vector walk (cwrs.rs cwrsi), and
-  P2  normalisation and PVQ spreading rotation (vq.rs exp_rotation):
-      ops/pvq_leaves.py, two CUDA kernels a tier on the card (plain torch
-      versions on the CPU).
+  P2  normalisation and PVQ spreading rotation (vq.rs exp_rotation),
+      each leaf's values placed in the X plane at its pvq_dst span:
+      ops/pvq_leaves.leaf_stage, one CUDA kernel a call on the card (the
+      plain torch walk, values and gather map on the CPU).
   P3  Band assembly in band order: fold/noise fills (counter-form LCG),
       per-stream pre/post transform operators, norm-buffer upkeep, stereo
       merge and the N == 2 butterfly: ops/band_assembly.py, one CUDA
@@ -36,10 +37,9 @@ from torch.profiler import record_function
 from .. import _device
 from ..celt import host_native
 from ..celt.modes import MODE
-from ..celt.plan import TIERS
 from ._tables import LCG_MAX, lcg_at, lcg_tensors, plan_combo_mats_np
 from .band_assembly import band_assembly, packed_operators
-from .pvq_leaves import cwrs_walk, pvq_leaf_values
+from .pvq_leaves import cwrs_walk, leaf_stage
 
 _M32 = 0xFFFFFFFF
 
@@ -145,56 +145,12 @@ def execute_packed(p: dict, x_direct, mats, *, channels: int, frame: int,
     nb = MODE.num_ebands
     M = 1 << lm
     S = p["direct"].shape[0]
-    # tier slot counts come from the plane shapes (the host may run a
-    # shrunk serving profile); nmax per tier is fixed
-    tiers = tuple((TIERS[t][0], int(p["pvq_active"][t].shape[1]))
-                  for t in range(3))
-    offs = [1]
-    for nmax, slots in tiers:
-        offs.append(offs[-1] + nmax * slots)
     A_J, C_J = lcg_tensors(dev)
-    f32 = torch.float32
 
-    # ---- P1 + P2: PVQ leaves per tier -> pool ------------------------
+    # ---- P1 + P2 and the pool -> X gather: the PVQ leaves' values at
+    # their pvq_dst spans, 0.0 elsewhere: one kernel launch on the card --
     with record_function("plan.leaves"):
-        parts = [torch.zeros((S, 1), dtype=f32, device=dev)]
-        for t, (nmax, slots) in enumerate(tiers):
-            # the kernels take contiguous planes; reshape already copies
-            # all but a broadcast plane of one stream
-            act, n, k, idx, gain, b, spread = (
-                p[f"pvq_{key}"][t].reshape(-1).contiguous()
-                for key in ("active", "n", "k", "idx", "gain", "b",
-                            "spread"))
-            with record_function("plan.cwrs_walk"):
-                iy = cwrs_walk(act, n, k, idx, nmax)
-            with record_function("plan.leaf_values"):
-                vals = pvq_leaf_values(iy, act, n, k, gain, b, spread, nmax)
-            parts.append(vals.reshape(S, slots * nmax))
-        pool = torch.cat(parts, dim=1).double()
-
-    # ---- pool -> X gather map from the per-slot leaf offsets (pvq_dst):
-    # spans are disjoint, so a difference-array cumsum gives
-    # map[c] = base + (c - dst) inside each slot's [dst, dst+n) span and 0
-    # (the pool's zero cell) elsewhere. Out-of-range points land in a pad
-    # column that is sliced off (the reference drops them).
-    with record_function("plan.gather_map"):
-        Cf = channels * frame
-        d1 = torch.zeros((S, Cf + 1), dtype=torch.int64, device=dev)
-        d2 = torch.zeros((S, Cf + 1), dtype=torch.int64, device=dev)
-        for t, (nmax, slots) in enumerate(tiers):
-            base_t = offs[t] + torch.arange(slots, device=dev) * nmax
-            act = p["pvq_active"][t].to(torch.int64)
-            dst = p["pvq_dst"][t]
-            on = act > 0
-            lo = torch.where(on, dst, Cf).clamp(0, Cf)
-            hi = torch.where(on, dst + p["pvq_n"][t], Cf).clamp(0, Cf)
-            v = torch.where(on, base_t[None, :] - dst, 0)
-            d1.scatter_add_(1, lo, act).scatter_add_(1, hi, -act)
-            d2.scatter_add_(1, lo, v).scatter_add_(1, hi, -v)
-        ind = torch.cumsum(d1[:, :Cf], dim=1)
-        cs2 = torch.cumsum(d2[:, :Cf], dim=1)
-        map_dev = ind * torch.arange(Cf, device=dev)[None, :] + cs2
-        X = torch.gather(pool, 1, map_dev)                  # (S, C*frame)
+        X = leaf_stage(p, channels=channels, frame=frame)   # (S, C*frame)
 
     # ---- P3: band assembly, in band order (fold lowbands read bands
     # decoded before them): one kernel launch on the card --------------

@@ -1,27 +1,32 @@
-"""The PVQ leaf stage of the CELT band-plan executor (P1 and P2 of
-band_exec.execute_packed) as two CUDA kernels and their plain PyTorch
-versions.
+"""The PVQ leaf stage of the CELT band-plan executor (P1, P2 and the
+pool -> X gather of band_exec.execute_packed) as CUDA kernels and their
+plain PyTorch versions.
 
-  cwrs_walk        CWRS index -> pulse vector iy, one leaf at a time
-                   (libopus cwrsi); port of band_exec_jax.cwrs_walk
-                   (mousiki_tpu/ops/band_exec_jax.py:150);
-  pvq_leaf_values  iy normalised to the leaf's gain, then the spreading
-                   rotation exp_rotation(dir = -1); port of the three
-                   lines before band_exec_jax.rotate_leaves in its
-                   execute_packed and of rotate_leaves itself (:280).
+  leaf_stage  every leaf of the three tiers: CWRS index -> pulse vector
+              (libopus cwrsi), iy normalised to the leaf's gain, the
+              spreading rotation exp_rotation(dir = -1), and the values
+              written into the X plane at the leaf's pvq_dst span; port of
+              band_exec_jax.cwrs_walk (mousiki_tpu/ops/band_exec_jax.py:
+              150), rotate_leaves (:280) with the normalisation before it
+              (:425-430), and execute_packed's pool -> X gather
+              (:432-456);
+  cwrs_walk   the walk alone over one tier's leaves (the lockstep plan
+              emission's).
 
-The reference compiles both as XLA loops (a lax.scan over the walk's
-steps, log-step doubling scans for the rotation's Givens chains); here a
-CUDA tensor always goes to the hand-written kernels of
-csrc/pvq_leaves.cu, a group of lanes a leaf, and a CPU tensor to the plain
-versions, `cwrs_walk_reference` and `pvq_leaf_values_reference`, the
-batched torch ops that ran on every device before. There is no other
-route: the wrappers raise on a device that is neither, on a dtype or a
-shape the kernels do not take, and when a kernel cannot build or launch.
+The reference compiles these as XLA loops (a lax.scan over the walk's
+steps, log-step doubling scans for the rotation's Givens chains) and a
+gather map; here a CUDA plan always goes to the hand-written kernels of
+csrc/pvq_leaves.cu (one launch of pvq_leaf_stage_kernel an executor call,
+one of cwrs_walk_kernel a walk) and a CPU plan to the plain versions,
+`leaf_stage_reference` (the walk, the values and the gather map in batched
+torch ops, as every device ran them before) and `cwrs_walk_reference`.
+There is no other route: the wrappers raise on a device that is neither,
+on a dtype, a shape or a layout the kernels do not take, and when a kernel
+cannot build or launch.
 
-A leaf stands alone in both (no sum across leaves), so a stream's values
-do not depend on the batch it shares. uint32 values are held in int64
-tensors, as everywhere in the executor; iy is int32.
+A leaf stands alone (no sum across leaves), so a stream's values do not
+depend on the batch it shares. uint32 values are held in int64 tensors,
+as everywhere in the executor; iy is int32.
 """
 
 from __future__ import annotations
@@ -32,21 +37,31 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ..celt.plan import TIERS
 from . import _build
 from ._tables import SPREAD_FACTOR, U_K, U_N, u_table
 
 # kernel launches made by the wrappers (not by the plain versions)
 cwrs_walk_launches = 0
-pvq_leaf_values_launches = 0
+leaf_stage_launches = 0
 # the widest tier the kernels take: the U table's last row
 NMAX_LIMIT = U_N - 1
+# words of row offsets ahead of the packed table's entries (csrc kHeader:
+# U_N + 1 offsets, padded to 16 bytes)
+HEADER_WORDS = 212
+# the executor's leaf planes (pvq_<name>, a tensor a tier) the stage reads
+STAGE_PLANES = (("active", torch.bool), ("n", torch.int64),
+                ("k", torch.int64), ("idx", torch.int64),
+                ("gain", torch.float32), ("b", torch.int64),
+                ("spread", torch.int64), ("dst", torch.int64))
 
 
 def reset_launches() -> None:
-    global cwrs_walk_launches, pvq_leaf_values_launches
+    global cwrs_walk_launches, leaf_stage_launches
     cwrs_walk_launches = 0
-    pvq_leaf_values_launches = 0
+    leaf_stage_launches = 0
 
 
 # ------------------------------------------------------------------ consts
@@ -65,6 +80,47 @@ def _u_table_u32(device: torch.device) -> torch.Tensor:
 @lru_cache(maxsize=None)
 def _spread_factor_t(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(SPREAD_FACTOR, device=device)
+
+
+@lru_cache(maxsize=None)
+def packed_u_table():
+    """The part of the U table a valid leaf's descent reads, packed row by
+    row as libopus lays out CELT_PVQ_U_DATA. V(n, k) = U(n, k) +
+    U(n, k + 1) < 2^32 caps k at kmax(n), which never grows with n, so
+    the descent of a leaf (n, k <= kmax(n)) reads rows <= n at columns
+    <= kmax(n) + 1. Returns (kmax (U_N,), off (U_N + 1,), entries): row
+    r >= 1 holds columns 0 .. min(kmax(r) + 2, U_K) - 1 at entries[off[r]
+    ..], row 0 none; kmax int64, off int64, entries uint32."""
+    U = u_table()
+    V = U[:, :-1].astype(np.int64) + U[:, 1:]
+    fits = V < 1 << 32
+    kmax = np.where(fits.all(axis=1), U_K - 2, fits.argmin(axis=1) - 1)
+    if (np.diff(kmax[1:]) > 0).any():
+        raise AssertionError("kmax(n) must not grow with n")
+    cols = np.minimum(kmax + 2, U_K)
+    cols[0] = 0
+    off = np.concatenate([[0], np.cumsum(cols)]).astype(np.int64)
+    entries = np.concatenate([U[r, :cols[r]] for r in range(U_N)])
+    return kmax.astype(np.int64), off, entries.astype(np.uint32)
+
+
+def packed_words(rows: int) -> int:
+    """The words of the packed table that hold rows 0..rows: the header and
+    their entries, rounded up to 16 bytes (the bulk copy's unit)."""
+    _, off, _ = packed_u_table()
+    return -(-(HEADER_WORDS + int(off[rows + 1])) // 4) * 4
+
+
+@lru_cache(maxsize=None)
+def _packed_u_t(device: torch.device) -> torch.Tensor:
+    """The packed table as the kernels stage it: HEADER_WORDS words of row
+    offsets (int32), then the entries (u32 bits), padded to 16 bytes."""
+    _, off, entries = packed_u_table()
+    head = np.zeros(HEADER_WORDS, np.int32)
+    head[:len(off)] = off
+    words = np.concatenate([head, entries.view(np.int32)])
+    pad = np.zeros(packed_words(U_N - 1) - len(words), np.int32)
+    return torch.as_tensor(np.concatenate([words, pad]), device=device)
 
 
 # ------------------------------------------------------------------ P1 walk
@@ -268,19 +324,109 @@ def pvq_leaf_values_reference(iy, active, n, k, gain, b, spread, nmax: int):
     return rotate_leaves(vals, active, n, k, b, spread, nmax)
 
 
+
+
+# ------------------------------------------------------------- the stage
+
+def _stage_tiers(p: dict) -> tuple:
+    """(nmax, slots) of each tier: nmax fixed, the slot count from the
+    plane shapes (the host may run a shrunk serving profile)."""
+    return tuple((TIERS[t][0], int(p["pvq_active"][t].shape[1]))
+                 for t in range(len(TIERS)))
+
+
+def leaf_stage_reference(p: dict, *, channels: int, frame: int,
+                         pulses: bool = False):
+    """The plain version of the stage kernel: for each tier the walk and
+    the values of every slot (`cwrs_walk_reference`,
+    `pvq_leaf_values_reference`) into a pool, then the pool -> X gather
+    map built from the per-slot leaf offsets (pvq_dst), as execute_packed
+    ran them. p: the executor's planes (band_exec._normalize_plan).
+    Returns X (S, channels * frame) float64, and with `pulses` also each
+    tier's iy (S * slots, nmax) int32."""
+    dev = p["direct"].device
+    S = p["direct"].shape[0]
+    tiers = _stage_tiers(p)
+    offs = [1]
+    for nmax, slots in tiers:
+        offs.append(offs[-1] + nmax * slots)
+    f32 = torch.float32
+    iys = []
+    parts = [torch.zeros((S, 1), dtype=f32, device=dev)]
+    for t, (nmax, slots) in enumerate(tiers):
+        act, n, k, idx, gain, b, spread = (
+            p[f"pvq_{key}"][t].reshape(-1).contiguous()
+            for key in ("active", "n", "k", "idx", "gain", "b", "spread"))
+        with record_function("plan.cwrs_walk"):
+            iy = cwrs_walk_reference(act, n, k, idx, nmax)
+        with record_function("plan.leaf_values"):
+            vals = pvq_leaf_values_reference(iy, act, n, k, gain, b, spread,
+                                             nmax)
+        iys.append(iy)
+        parts.append(vals.reshape(S, slots * nmax))
+    pool = torch.cat(parts, dim=1).double()
+
+    # ---- pool -> X gather map from the per-slot leaf offsets (pvq_dst):
+    # spans are disjoint, so a difference-array cumsum gives
+    # map[c] = base + (c - dst) inside each slot's [dst, dst+n) span and 0
+    # (the pool's zero cell) elsewhere. Out-of-range points land in a pad
+    # column that is sliced off (the reference drops them).
+    with record_function("plan.gather_map"):
+        Cf = channels * frame
+        d1 = torch.zeros((S, Cf + 1), dtype=torch.int64, device=dev)
+        d2 = torch.zeros((S, Cf + 1), dtype=torch.int64, device=dev)
+        for t, (nmax, slots) in enumerate(tiers):
+            base_t = offs[t] + torch.arange(slots, device=dev) * nmax
+            act = p["pvq_active"][t].to(torch.int64)
+            dst = p["pvq_dst"][t]
+            on = act > 0
+            lo = torch.where(on, dst, Cf).clamp(0, Cf)
+            hi = torch.where(on, dst + p["pvq_n"][t], Cf).clamp(0, Cf)
+            v = torch.where(on, base_t[None, :] - dst, 0)
+            d1.scatter_add_(1, lo, act).scatter_add_(1, hi, -act)
+            d2.scatter_add_(1, lo, v).scatter_add_(1, hi, -v)
+        ind = torch.cumsum(d1[:, :Cf], dim=1)
+        cs2 = torch.cumsum(d2[:, :Cf], dim=1)
+        map_dev = ind * torch.arange(Cf, device=dev)[None, :] + cs2
+        X = torch.gather(pool, 1, map_dev)                  # (S, C*frame)
+    return (X, iys) if pulses else X
+
+
 # ---------------------------------------------------------------- kernels
+
+class _Plane(ctypes.Structure):
+    """csrc/pvq_leaves.cu's Plane: a plane's data and its stream and slot
+    strides in elements."""
+    _fields_ = [("data", ctypes.c_void_p), ("stride", ctypes.c_int64),
+                ("slot_stride", ctypes.c_int64)]
+
+
+class _Tier(ctypes.Structure):
+    _fields_ = ([(name, _Plane) for name, _ in STAGE_PLANES]
+                + [("iy", ctypes.c_void_p), ("slots", ctypes.c_int),
+                   ("nmax", ctypes.c_int), ("G", ctypes.c_int),
+                   ("tasks", ctypes.c_int)])
+
+
+class _Stage(ctypes.Structure):
+    _fields_ = [("tier", _Tier * len(TIERS)), ("tiers", ctypes.c_int),
+                ("S", ctypes.c_int), ("packed", ctypes.c_void_p),
+                ("u", ctypes.c_void_p), ("X", ctypes.c_void_p),
+                ("cols", ctypes.c_int64), ("packed_words", ctypes.c_int),
+                ("row_words", ctypes.c_int)]
+
 
 def _kernels():
     lib = _build.load("pvq_leaves")
-    walk, values = lib.mousiki_cwrs_walk, lib.mousiki_pvq_leaf_values
+    stage, walk = lib.mousiki_pvq_leaf_stage, lib.mousiki_cwrs_walk
     if walk.argtypes is None:
-        walk.argtypes = ([ctypes.c_void_p] * 6
+        stage.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        stage.restype = ctypes.c_int
+        walk.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                         + [ctypes.c_void_p] * 2
                          + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         walk.restype = ctypes.c_int
-        values.argtypes = ([ctypes.c_void_p] * 8
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        values.restype = ctypes.c_int
-    return walk, values
+    return stage, walk
 
 
 def build_kernel() -> None:
@@ -330,48 +476,95 @@ def cwrs_walk(active, n, k0, idx, nmax: int):
     active (B,) bool; n, k0, idx (B,) int64 (idx a u32 value). Returns iy
     (B, nmax) int32: libopus's cwrsi(n, k0, idx) in positions 0..n-1,
     zero past n and for inactive leaves. CPU tensors take
-    `cwrs_walk_reference`; CUDA tensors launch the kernel once."""
+    `cwrs_walk_reference`; CUDA tensors launch cwrs_walk_kernel once
+    (nmax a multiple of 4)."""
     dev = _check("cwrs_walk", {"active": (active, torch.bool, 1),
                                "n": (n, torch.int64, 1),
                                "k": (k0, torch.int64, 1),
                                "idx": (idx, torch.int64, 1)}, nmax)
     if dev.type == "cpu":
         return cwrs_walk_reference(active, n, k0, idx, nmax)
+    if nmax % 4:
+        raise ValueError(f"the cwrs_walk kernel takes nmax a multiple of 4 "
+                         f"(its rows move 16 bytes a lane), got {nmax}")
     iy = torch.empty((n.shape[0], nmax), dtype=torch.int32, device=dev)
     if n.shape[0] == 0:
         return iy
-    walk, _ = _kernels()
+    _, walk = _kernels()
     _launch("cwrs_walk", walk, dev, active.data_ptr(), n.data_ptr(),
-            k0.data_ptr(), idx.data_ptr(), _u_table_u32(dev).data_ptr(),
-            iy.data_ptr(), iy.shape[0], nmax)
+            k0.data_ptr(), idx.data_ptr(), _packed_u_t(dev).data_ptr(),
+            packed_words(nmax), _u_table_u32(dev).data_ptr(), iy.data_ptr(),
+            iy.shape[0], nmax)
     global cwrs_walk_launches
     cwrs_walk_launches += 1
     return iy
 
 
-def pvq_leaf_values(iy, active, n, k, gain, b, spread, nmax: int):
-    """The leaves' values: iy * gain / sqrt(sum iy^2), then
-    exp_rotation(dir = -1) with the leaf's k, b blocks and spread.
+def _check_stage(p: dict, channels: int, frame: int):
+    """Dtype, shape and device checks of both routes; returns (device,
+    S)."""
+    if channels not in (1, 2) or frame < 1:
+        raise ValueError(f"leaf_stage takes channels 1 or 2 and a frame of "
+                         f"at least 1, got {channels}, {frame}")
+    dev, S = p["direct"].device, p["direct"].shape[0]
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"leaf_stage runs on cpu or cuda, not {dev}")
+    for name, dtype in STAGE_PLANES:
+        key = f"pvq_{name}"
+        if len(p[key]) != len(TIERS):
+            raise ValueError(f"leaf_stage: {key} holds {len(p[key])} tiers, "
+                             f"not {len(TIERS)}")
+        for t, plane in enumerate(p[key]):
+            if plane.dtype != dtype:
+                raise TypeError(f"leaf_stage: {key} must be {dtype}, got "
+                                f"{plane.dtype}")
+            want = (S, p["pvq_active"][t].shape[-1])
+            if plane.dim() != 2 or tuple(plane.shape) != want:
+                raise ValueError(f"leaf_stage: bad shape of {key} tier {t}: "
+                                 f"{tuple(plane.shape)}, not {want}")
+            if plane.device != dev:
+                raise ValueError(f"leaf_stage: {key} is on {plane.device}, "
+                                 f"the plan on {dev}")
+    return dev, S
 
-    iy (B, nmax) int32 from `cwrs_walk`; active (B,) bool; n, k, b,
-    spread (B,) int64; gain (B,) float32. Returns (B, nmax) float32, zero
-    past n. CPU tensors take `pvq_leaf_values_reference`; CUDA tensors
-    launch the kernel once."""
-    dev = _check("pvq_leaf_values", {
-        "iy": (iy, torch.int32, 2), "active": (active, torch.bool, 1),
-        "n": (n, torch.int64, 1), "k": (k, torch.int64, 1),
-        "gain": (gain, torch.float32, 1), "b": (b, torch.int64, 1),
-        "spread": (spread, torch.int64, 1)}, nmax)
+
+def leaf_stage(p: dict, *, channels: int, frame: int, pulses: bool = False):
+    """The X plane of S packed band plans before their band assembly: each
+    active leaf's n values (its walk, normalisation and rotation) at
+    columns pvq_dst .. pvq_dst + n - 1 of its stream's row, those inside
+    [0, channels * frame); 0.0 elsewhere.
+
+    p: the executor's planes (band_exec._normalize_plan; the pvq_ planes
+    of STAGE_PLANES are read, a (S, slots) tensor a tier). Returns X (S,
+    channels * frame) float64, and with `pulses` also each tier's pulse
+    vectors iy (S * slots, nmax) int32. CPU planes take
+    `leaf_stage_reference`; CUDA planes launch pvq_leaf_stage_kernel once
+    (X zeroed by one torch.zeros before it)."""
+    dev, S = _check_stage(p, channels, frame)
     if dev.type == "cpu":
-        return pvq_leaf_values_reference(iy, active, n, k, gain, b, spread,
-                                         nmax)
-    out = torch.empty((iy.shape[0], nmax), dtype=torch.float32, device=dev)
-    if iy.shape[0] == 0:
-        return out
-    _, values = _kernels()
-    _launch("pvq_leaf_values", values, dev, iy.data_ptr(), active.data_ptr(),
-            n.data_ptr(), k.data_ptr(), gain.data_ptr(), b.data_ptr(),
-            spread.data_ptr(), out.data_ptr(), out.shape[0], nmax)
-    global pvq_leaf_values_launches
-    pvq_leaf_values_launches += 1
-    return out
+        return leaf_stage_reference(p, channels=channels, frame=frame,
+                                    pulses=pulses)
+    tiers = _stage_tiers(p)
+    X = torch.zeros((S, channels * frame), dtype=torch.float64, device=dev)
+    iys = [torch.zeros((S * slots, nmax), dtype=torch.int32, device=dev)
+           for nmax, slots in tiers] if pulses else None
+    if S == 0:
+        return (X, iys) if pulses else X
+    stage = _Stage(tiers=len(tiers), S=S,
+                   packed=_packed_u_t(dev).data_ptr(),
+                   u=_u_table_u32(dev).data_ptr(), X=X.data_ptr(),
+                   cols=X.shape[1],
+                   packed_words=packed_words(max(t[0] for t in tiers)))
+    # the widest tier first: its longest chains start first
+    for i, t in enumerate(reversed(range(len(tiers)))):
+        tier = stage.tier[i]
+        for name, _ in STAGE_PLANES:
+            plane = p[f"pvq_{name}"][t]
+            setattr(tier, name, _Plane(plane.data_ptr(), *plane.stride()))
+        tier.iy = iys[t].data_ptr() if pulses else None
+        tier.nmax, tier.slots = tiers[t]
+    fn, _ = _kernels()
+    _launch("pvq_leaf_stage", fn, dev, ctypes.addressof(stage))
+    global leaf_stage_launches
+    leaf_stage_launches += 1
+    return (X, iys) if pulses else X
