@@ -5,10 +5,12 @@ by the port's tests, chip_smoke.py and tools/torch_batch_invariance.py;
 like golden_streams.py it is not part of any installed package.
 
 A stage is a function of the port's step that `record_stages` wraps
-while it is open: the band plans' X plane, the concealment's pitch, LPC,
-excitation, LPC extension and re-entry spectrum, the IMDCT, the comb
-filter, the PCM, and on the mixed path the SILK resamplers and the
-device-SILK synthesis. The first stage that differs in the first frame
+while it is open: the band plans' X plane, the concealment's pitch, its
+row work (the LPC and the extension of plc_rows, the kernel's outputs on
+the card; on the CPU also the LPC fit, excitation and LPC synthesis of
+its plain version) and re-entry spectrum, the IMDCT, the comb filter, the
+PCM, and on the mixed path the SILK resamplers and the device-SILK
+synthesis. The first stage that differs in the first frame
 that differs is where the batch enters the step.
 """
 
@@ -27,11 +29,17 @@ def _first(out):
     return out[0]
 
 
+def _lpc_and_ext(out):
+    """plc_rows' (lpc, ext), a row's LPC and extension side by side."""
+    return torch.cat(out, dim=-1)
+
+
 # (name, module, attribute, the output to keep): the modules' own globals,
 # so that the step's calls go through the wrapper
 STAGES = (
     ("x_plane", band_exec, "execute_packed", None),
     ("pitch", plc, "_pitch_search", None),
+    ("plc_rows", plc, "plc_rows", _lpc_and_ext),
     ("lpc", plc, "_lpc_fit", None),
     ("excitation", plc, "_fir_residual", None),
     ("extension", plc, "_lpc_synthesis", None),

@@ -17,8 +17,9 @@ thing if any module of mousiki_tpu is loaded):
      g++: celt_host, silk_host, opus_host), the fused de-emphasis kernel
      (csrc/deemphasis.cu, nvcc), the PVQ leaf stage and walk kernels
      (csrc/pvq_leaves.cu), the band assembly kernel
-     (csrc/band_assembly.cu) and the comb filter kernel
-     (csrc/comb_filter.cu), each source with its build time;
+     (csrc/band_assembly.cu), the comb filter kernel
+     (csrc/comb_filter.cu) and the concealment's row kernel
+     (csrc/plc_rows.cu), each source with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -98,6 +99,29 @@ thing if any module of mousiki_tpu is loaded):
      phases 22 and 26; at the end, every frame size a path's executor
      ran is among those checked here (no path of this script runs LM
      0-2);
+ 3d. the concealment's row kernel (ops/plc.plc_rows: LPC fit, residual,
+     decay and excitation, the 1,080-step LPC synthesis, one launch a
+     lossy step) against its plain version on the card: the calls of
+     CeltStreamPipeline(256, use_plan=True) and of
+     OpusStreamPipeline(256, channels=1) under phase 5's loss pattern (8
+     frames: first and second losses, the 0.8 fade and the carried LPC)
+     and the seeded rows of plc_cases.py (white noise, AR(2), an
+     all-zero history, a near full-scale one, pitch 100 and 720 with
+     2 * pitch > 1024, a synthesis that saturates at +-65536, rows not
+     lost; 1,080 and 360 samples): the lost rows' LPC within 1e-4 of the
+     plain version (seeded rows) or no further from a float64 Levinson
+     fit than the plain version plus 1e-4 (real histories), ext within
+     1e-3 of each row's peak, the rows of streams not lost exactly 0.0
+     with the carried LPC; celt_plc_freq through the kernel within 1e-3 *
+     max|freq| of its plain route on the lost streams; the worst errors
+     and the rows whose float32 LPC bits differ printed; then the
+     kernel's device time (torch.profiler) at every (S, C) a lossy path
+     runs it (256 and 1024, stereo and mono, a mesh shard's) with ~10% of
+     the streams lost, at (256, 2) with all lost, and of one row alone
+     (the chain), each beside its bound (the bytes it must move: planes,
+     the lost rows' history, carried LPCs, outputs, over HBM bandwidth,
+     against its operations over the FP64 peak) and the plain version's
+     device time;
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
@@ -116,7 +140,11 @@ thing if any module of mousiki_tpu is loaded):
      frame 2 as one batch, as 8 batches of 2 and as 5 + 11, 4 frames,
      every lane within 1e-5 and each stage of the step compared
      (batch_stages.py: the worst error a stage and the first stage that
-     differs are printed);
+     differs are printed); the concealment's row kernel launched once in
+     each lossy step at S = 256 and 1024 (from phase 4 on, every plan
+     step on the card is held to one launch where the host saw a lost
+     stream and none where it saw none, and the plain LPC synthesis
+     never runs on the card);
   6. the CELT decoder's other modes at S = 256, 8 frames:
      decode_frames_scanned, decode_stream(chunk=4) and decode_stream with
      overlap_host each equal to the stepped output exactly, and the
@@ -133,7 +161,7 @@ thing if any module of mousiki_tpu is loaded):
   9. mixed loss: ~10% seeded loss on the mono mix, the first 8 streams
      against the port run on the CPU (5e-3 / 2e-4 as in phase 5), and
      the batch check of phase 5 (16 streams with 15% loss from frame 1,
-     3 frames);
+     3 frames); the row kernel once a lossy step, as in phase 5;
  10. encode front: ops/encode_front.front_step at S = 256, stereo, on the
      golden stereo PCM (stream s replays fixture s % 3), 12 frames with
      the state threaded, against the same function on the CPU: every
@@ -184,7 +212,9 @@ thing if any module of mousiki_tpu is loaded):
      steps (kernel launches, the leaf kernels' among them, device busy
      time, host time by stage) of both decoders, the device-SILK lane,
      one encode step and one frame of each quantizer; the CELT step at
-     S = 256 within 700 launches and the mixed step within 700;
+     S = 256 within 700 launches and the mixed step within 700, and one
+     lossy CELT and one lossy mixed step (every tenth stream lost) within
+     600 each, the row kernel launched once in each;
  15. neural concealment: BatchedDeepRecovery(64) with the port's seeded
      synthetic models, 5 conceal calls of 2 frames on bench.py's features
      (default_rng(0), (64, 2, 20) * 0.3), against the same class on the
@@ -255,8 +285,9 @@ thing if any module of mousiki_tpu is loaded):
      have lost nothing yet and on the others printed apart), the streams
      that lost nothing within 2e-4 of the
      golden PCM, and one kernel launch a shard a step (counts reset just
-     before the mesh run); ms/step of the mesh and of the single-device
-     pipeline at S = 256, loss-free, taking turns, three runs of 4 steps;
+     before the mesh run), the row kernel once a lossy shard a step;
+     ms/step of the mesh and of the single-device pipeline at S = 256,
+     loss-free, taking turns, three runs of 4 steps;
      one profiled mesh step (launches, the gather's launches and host
      time);
  24. libopus: whether the host has it (hostcodec/testing/oracle.py) and
@@ -300,7 +331,10 @@ device time with the input in L2 as the path leaves it and with L2
 evicted; for the walk, one row for each lockstep path, its numbers those
 of a step's three launches in the plan emission; for the leaf stage, the
 band assembly and the comb filter, one row for each path that runs them,
-a step's launches at the path's width, or the lockstep step's own); the
+a step's launches at the path's width, or the lockstep step's own; for
+the concealment's rows, one row for each lossy path and width, its
+launches beside phase 3d's times at that width, with chain_ms the time
+of one row alone); the
 last
 line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
@@ -330,6 +364,7 @@ import batch_stages
 from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
                             load_mono_mix, load_stereo_celt)
 from comb_cases import comb_calls, comb_rows
+import plc_cases
 from leaf_cases import outside_leaves, synthetic_leaves, synthetic_plan
 from mousiki_tpu_torch._device import operator64, require_cuda
 from mousiki_tpu_torch.ops import _build
@@ -345,7 +380,7 @@ from mousiki_tpu_torch.models import deep_plc, fargan
 from mousiki_tpu_torch.models import dred as rdovae
 from mousiki_tpu_torch.ops import celt_lockstep_emit as lockstep_emit
 from mousiki_tpu_torch.ops import celt_lockstep_top as lockstep
-from mousiki_tpu_torch.ops import encode_front, silk_nsq, synthesis
+from mousiki_tpu_torch.ops import encode_front, plc, silk_nsq, synthesis
 from mousiki_tpu_torch.hostcodec.testing import oracle
 from mousiki_tpu_torch.celt.host_native import NativeCeltHostBatch
 from mousiki_tpu_torch.celt.plan import TIERS
@@ -453,8 +488,11 @@ SHORT_FRAMES = (120, 240, 480)  # LM 0-2, encoded on the card for 3c
 COMB_ULPS = 4
 # the profiled steps of phase 14 at S = 256, at most (28,448 and 26,002
 # before the leaf stage ran as two kernels a tier; 5,112 and 2,666
-# before the band assembly and the comb filter did)
-MAX_STEP_LAUNCHES = {"S256": 700, "mixed_S256": 700}
+# before the band assembly and the comb filter did), and the lossy steps
+# (a tenth of the streams lost) within 600 (6,431 a CELT step before the
+# concealment's row work ran as one kernel)
+MAX_STEP_LAUNCHES = {"S256": 700, "mixed_S256": 700, "S256_lossy": 600,
+                     "mixed_S256_lossy": 600}
 PATH_LAUNCHES: dict = {}        # path -> {kernel: launches in its run}
 # lockstep path -> {kernel: times of its first step's own call(s)}
 OWN_STEP_ROWS: dict = {}
@@ -463,6 +501,21 @@ EVENT_TIMED: list = []
 FRAMES_DECODED: set = set()     # frame sizes the paths' executors ran
 # lockstep path -> the times of its plan emission's walk launches a step
 EMISSION_WALK: dict = {}
+# the concealment's row kernel against its plain version: the LPC of a
+# well-conditioned row (tests/test_torch_plc.py's bar), a real history's
+# no further from the float64 fit than the plain version's plus this; ext
+# and the re-entry spectrum relative to a row's (the lost streams')
+# largest value (an LPC synthesis over 1,080 samples, in which float32
+# round-off grows)
+PLC_LPC_TOL = 1e-4
+PLC_EXT_TOL = 1e-3
+# the reference's loop the row kernel replaces, and its source
+PLC_KERNEL = ("mousiki_tpu/ops/plc_jax.py:90",
+              "mousiki_tpu_torch/csrc/plc_rows.cu")
+# the label the concealment guard files a step's launches under, and
+# (label, S, C) -> [steps, lossy steps, plc_rows launches] on the card
+PLC_PATH = ["other"]
+PLC_LAUNCHES: dict = {}
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -507,15 +560,16 @@ def _timed(fn):
 
 
 def phase_build():
-    """g++ for the three host libraries and nvcc for the four kernel
+    """g++ for the three host libraries and nvcc for the five kernel
     sources, started together."""
-    with ThreadPoolExecutor(max_workers=7) as pool:
+    with ThreadPoolExecutor(max_workers=8) as pool:
         hosts = {name: pool.submit(_timed, partial(_build.build_host, name))
                  for name in _build.HOST_LIBS}
         kernel = pool.submit(_timed, deemph.build_kernel)
         leaves = pool.submit(_timed, pvq.build_kernel)
         assembly = pool.submit(_timed, band_asm.build_kernel)
         comb = pool.submit(_timed, synthesis.build_comb_kernel)
+        rows = pool.submit(_timed, plc.build_plc_kernel)
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
             leaf_kernels="csrc/pvq_leaves.cu",
@@ -524,6 +578,7 @@ def phase_build():
             band_assembly_seconds=assembly.result(),
             comb_filter="csrc/comb_filter.cu",
             comb_filter_seconds=comb.result(),
+            plc_rows="csrc/plc_rows.cu", plc_rows_seconds=rows.result(),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
 
@@ -682,16 +737,18 @@ def _reset_launches() -> None:
     pvq.reset_launches()
     band_asm.reset_launches()
     synthesis.reset_launches()
+    plc.reset_launches()
 
 
 def _kernel_counts() -> dict:
     """The launch counts of the kernels a decode step runs besides the
-    de-emphasis: the leaf stage's, the walk's, the band assembly's and
-    the comb filter's."""
+    de-emphasis: the leaf stage's, the walk's, the band assembly's, the
+    comb filter's and, on a lossy step, the concealment's rows'."""
     return {"pvq_leaf_stage": pvq.leaf_stage_launches,
             "cwrs_walk": pvq.cwrs_walk_launches,
             "band_assembly": band_asm.band_assembly_launches,
-            "comb_filter": synthesis.comb_filter_launches}
+            "comb_filter": synthesis.comb_filter_launches,
+            "plc_rows": plc.plc_rows_launches}
 
 
 def _path_launches(path: str, steps: int, got=None, after_each=None,
@@ -706,8 +763,10 @@ def _path_launches(path: str, steps: int, got=None, after_each=None,
     walks), and never on another; counted after each step where
     `after_each` holds the counts, else over the run. A path without the
     plan executor (executor=False: the non-plan decoders) is held to the
-    comb filter's alone."""
+    comb filter's alone. The concealment's launches are held by
+    _guard_plc, step by step."""
     got = dict(_kernel_counts() if got is None else got)
+    got.pop("plc_rows", None)
     if not executor:
         got = {"comb_filter": got["comb_filter"]}
     elif not lockstep:
@@ -1155,6 +1214,62 @@ def _record_frames() -> None:
     band_exec.band_assembly = recorded
 
 
+def _guard_plc() -> None:
+    """From now on, hold every plan step on the card to one launch of the
+    concealment's row kernel where the host saw a lost stream and none
+    where it saw none, filed under PLC_PATH[0] and the step's (S, C);
+    and fail if the plain LPC synthesis runs on the card."""
+    step = band_exec.plan_plc_core
+    synth = plc._lpc_synthesis
+
+    def guarded(consts, plc_consts, state, *args, any_lost, **kw):
+        before = plc.plc_rows_launches
+        out = step(consts, plc_consts, state, *args, any_lost=any_lost,
+                   **kw)
+        mem = state.decode_mem
+        if mem.is_cuda:
+            n = plc.plc_rows_launches - before
+            check(n == int(any_lost), f"{PLC_PATH[0]}: plc_rows launched "
+                  f"{n} times in a step with any_lost={any_lost}")
+            key = (PLC_PATH[0], mem.shape[0], mem.shape[1])
+            seen = PLC_LAUNCHES.setdefault(key, [0, 0, 0])
+            seen[0] += 1
+            seen[1] += int(any_lost)
+            seen[2] += n
+        return out
+
+    def plain_synthesis(e_ext, tail, lpc):
+        check(not e_ext.is_cuda, f"{PLC_PATH[0]}: the plain LPC synthesis "
+              "ran on the card")
+        return synth(e_ext, tail, lpc)
+
+    band_exec.plan_plc_core = guarded
+    plc._lpc_synthesis = plain_synthesis
+
+
+@contextlib.contextmanager
+def _plc_label(name: str):
+    """File the concealment guard's counts under `name` inside."""
+    PLC_PATH[0] = name
+    try:
+        yield
+    finally:
+        PLC_PATH[0] = "other"
+
+
+def _plc_held(label: str, widths) -> dict:
+    """The guard's counts under `label` at each (S, C) of `widths`: a
+    lossy step there, and one launch a lossy step (a mesh shard's each).
+    Returns {"S{S}_C{C}": launches}."""
+    out = {}
+    for S, C in widths:
+        steps, lossy, n = PLC_LAUNCHES.get((label, S, C), (0, 0, 0))
+        check(lossy > 0 and n == lossy, f"{label} at ({S}, {C}): {n} "
+              f"plc_rows launches in {lossy} lossy of {steps} steps")
+        out[f"S{S}_C{C}"] = n
+    return out
+
+
 _STACKS: dict = {}
 
 
@@ -1587,6 +1702,209 @@ def phase_step_kernels(dev, streams, mono, widths):
     return table
 
 
+# ------------------------------------------- the concealment's rows (3d)
+
+def _lossy_calls(make_pipe, batch_fn, frames: int):
+    """The plc_rows and celt_plc_freq calls of a pipeline's steps under
+    phase 5's loss pattern (seed 17, ~10% from frame 1, stream 1 lost in
+    frames 5 and 6: second losses with the 0.8 fade and carried LPC)."""
+    rng = np.random.default_rng(17)
+    lost = rng.random((S_MAIN, frames)) < 0.10
+    lost[:, 0] = False
+    lost[1, 5:7] = True
+    pipe = make_pipe()
+    with _kept_calls(plc, "plc_rows", frames) as rows, \
+            _kept_calls(plc, "celt_plc_freq", frames) as freqs:
+        for f in range(frames):
+            pipe.step(batch_fn(S_MAIN, f, lost[:, f]))
+    check(0 < len(rows) <= int(lost.any(axis=0).sum()),
+          f"{len(rows)} concealment calls in {frames} frames")
+    return rows, freqs
+
+
+def _rows_args(call):
+    (consts, hist, first, lost, pitch, fade, lpc_prev), kw = call
+    return consts, (hist, first, lost, pitch, fade, lpc_prev), kw["n_ext"]
+
+
+def _plc_check(label, call, well_conditioned: bool):
+    """The kernel against its plain version on one plc_rows call: lost
+    rows' LPC within PLC_LPC_TOL of the plain version (well-conditioned
+    rows) or no further from the float64 fit than the plain version plus
+    PLC_LPC_TOL (real histories), their ext within PLC_EXT_TOL of each
+    row's peak; the other rows ext 0.0 and the carried LPC. Returns [rows
+    lost, the largest ext error, in units of the row's peak, the largest
+    LPC error, the rows whose LPC bits differ]."""
+    consts, args, n_ext = _rows_args(call)
+    hist, first, lost, _, _, lpc_prev = args
+    lpc, ext = plc.plc_rows(consts, *args, n_ext=n_ext)
+    want_lpc, want_ext = plc.plc_rows_reference(consts, *args, n_ext=n_ext)
+    check(bool(torch.isfinite(ext).all() and torch.isfinite(lpc).all()),
+          f"{label}: plc_rows output not finite")
+    check(bool((ext[~lost] == 0).all()), f"{label}: ext of a row that is "
+          "not lost is not 0.0")
+    check(torch.equal(lpc[~lost | ~first], lpc_prev[~lost | ~first]),
+          f"{label}: a carried LPC changed")
+    peak = want_ext.abs().amax(dim=-1, keepdim=True)
+    diff = (ext - want_ext).abs()[lost]
+    check(bool((diff <= PLC_EXT_TOL * peak[lost]).all()),
+          f"{label}: ext beyond {PLC_EXT_TOL} of a row's peak")
+    lpc_err = (lpc - want_lpc).abs()[lost].max().item()
+    fit = first & lost
+    if well_conditioned:
+        check(lpc_err <= PLC_LPC_TOL, f"{label}: LPC {lpc_err} from the "
+              f"plain version (bar {PLC_LPC_TOL})")
+    elif fit.any():
+        exact = torch.as_tensor(plc_cases.lpc_fit_f64(
+            consts["han"].cpu().numpy(), consts["lagw"].cpu().numpy(),
+            hist[fit].cpu().numpy()), device=hist.device)
+        got = (lpc[fit].double() - exact).abs().max().item()
+        plain = (want_lpc[fit].double() - exact).abs().max().item()
+        check(got <= plain + PLC_LPC_TOL, f"{label}: LPC {got} from the "
+              f"float64 fit, the plain version {plain}")
+    rel = (diff / peak[lost].clamp(min=1e-30)).max().item() if lost.any() \
+        else 0.0
+    flips = int((lpc != want_lpc).any(dim=-1)[lost].sum())
+    return [int(lost.sum()) * hist.shape[1], diff.max().item()
+            if diff.numel() else 0.0, rel, lpc_err, flips]
+
+
+def _freq_check(label, call):
+    """celt_plc_freq through the kernel against its plain route: the
+    lost streams' re-entry spectrum within PLC_EXT_TOL of its largest
+    value. Returns the relative error."""
+    args, kw = call
+    lost = args[3]
+    got, _ = plc.celt_plc_freq(*args, **kw)
+    rows = plc.plc_rows
+    plc.plc_rows = plc.plc_rows_reference
+    try:
+        want, _ = plc.celt_plc_freq(*args, **kw)
+    finally:
+        plc.plc_rows = rows
+    scale = want[lost].abs().max().item()
+    err = (got - want)[lost].abs().max().item()
+    check(err <= PLC_EXT_TOL * scale, f"{label}: freq {err} from the plain "
+          f"route (bar {PLC_EXT_TOL} * {scale})")
+    return err / scale
+
+
+def plc_work(first, lost, pitch, C: int, n_ext: int) -> tuple[int, int]:
+    """(bytes, operations) one plc_rows call needs on these inputs: the
+    planes, the history of each lost row, the carried LPC of each row
+    that keeps it, the window and lag tables where a row is fitted, each
+    output once; operations for each lost row (the autocorrelation's 25
+    lags and the Levinson recursion where it is fitted, the residual, the
+    energies of up to two pitch periods, the excitation and the
+    synthesis)."""
+    S = lost.shape[0]
+    n_lost = int(lost.sum()) * C
+    n_fit = int((lost & first).sum()) * C
+    nbytes = (10 * S + 4 * plc.HIST * n_lost
+              + 4 * plc.ORDER * (S * C - n_fit)
+              + (4 * (plc.HIST + 2 * plc.ORDER) if n_fit else 0)
+              + 4 * S * C * (plc.ORDER + n_ext))
+    fit = (2 * sum(plc.HIST - lag for lag in range(plc.ORDER + 1))
+           + plc.HIST + sum(2 * i + 8 for i in range(plc.ORDER)) + plc.ORDER)
+    p = pitch[lost].long()
+    energies = int((4 * torch.clamp(2 * p, max=plc.HIST)).sum()) * C
+    row = 2 * plc.ORDER * plc.HIST + 4 * n_ext + (2 * plc.ORDER + 2) * n_ext
+    return nbytes, n_fit * fit + n_lost * row + energies
+
+
+def _plc_times(label, call):
+    """The kernel's device time on one call (torch.profiler), its bound,
+    the plain version's device time, the worst ext error."""
+    consts, args, n_ext = _rows_args(call)
+    hist, first, lost, pitch, _, _ = args
+    run = partial(plc.plc_rows, consts, *args, n_ext=n_ext)
+    plain = partial(plc.plc_rows_reference, consts, *args, n_ext=n_ext)
+    nbytes, ops = plc_work(first, lost, pitch, hist.shape[1], n_ext)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_FLOPS * 1e3
+    ms = _device_ms(run, match="plc_rows_kernel")
+    _, ext = run()
+    _, want = plain()
+    row = dict(shape=list(hist.shape[:2]) + [n_ext],
+               streams_lost=int(lost.sum()), ms=ms,
+               plain_ms=_device_ms(plain, reps=2, device_only=True),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, operations=ops,
+               max_abs_err=(ext - want)[lost].abs().max().item()
+               if lost.any() else 0.0)
+    row["bound_share"] = row["bound_ms"] / ms
+    say(f"plc_times_{label}", **row)
+    return row
+
+
+def _rows_of(call, S: int, lost_all: bool = False):
+    """A plc_rows call's arguments for S streams (the call's streams
+    repeated or cut), every stream lost at a first loss with lost_all."""
+    consts, args, n_ext = _rows_args(call)
+    reps = -(-S // args[0].shape[0])
+    args = [torch.cat([a] * reps)[:S].contiguous() for a in args]
+    if lost_all:
+        args[1] = torch.ones_like(args[1])
+        args[2] = torch.ones_like(args[2])
+        args[4] = torch.ones_like(args[4])
+    return (consts, *args), {"n_ext": n_ext}
+
+
+def phase_plc_kernel(dev, streams, mono, widths):
+    """The concealment's row kernel (ops/plc.plc_rows) against its plain
+    version on the card: the calls of phase 5's and phase 9's lossy steps
+    at S = 256 (stereo and mono) and the seeded rows of plc_cases.py;
+    celt_plc_freq through both routes on the stereo steps; then the
+    kernel's time at each (S, C) of `widths` with ~10% of the streams
+    lost, at (256, 2) with every stream lost, and of one row alone (the
+    chain). Returns {(S, C): row, "all_lost": row, "chain": row}."""
+    frames = 8
+    celt_rows, celt_freqs = _lossy_calls(
+        lambda: CeltStreamPipeline(S_MAIN, use_plan=True, device=dev),
+        partial(frame_batch, streams), frames)
+    mono_rows, _ = _lossy_calls(
+        lambda: OpusStreamPipeline(S_MAIN, channels=1, device=dev),
+        partial(frame_batch, mono, packets=True), frames)
+    seeded = plc_cases.plc_rows(np.random.default_rng(18))
+    consts = _rows_args(celt_rows[0])[0]
+    seeded_call = ((consts, *(torch.as_tensor(seeded[k], device=dev)
+                              for k in ("hist", "first", "lost", "pitch",
+                                        "fade", "lpc_prev"))),
+                   {"n_ext": FRAME + plc.OVERLAP})
+    cases = {f"celt_step{k}": (c, False) for k, c in enumerate(celt_rows)}
+    cases.update({f"mixed_step{k}": (c, False)
+                  for k, c in enumerate(mono_rows)})
+    cases["seeded"] = (seeded_call, True)
+    cases["seeded_lm1"] = ((seeded_call[0], {"n_ext": 240 + plc.OVERLAP}),
+                           True)
+    checked = {label: _plc_check(label, call, wc)
+               for label, (call, wc) in cases.items()}
+    check(any(bool((~c[0][2] & c[0][3]).any()) for c in celt_rows),
+          "no second loss among the stereo steps")
+    freq_err = max(_freq_check(f"celt_step{k}", c)
+                   for k, c in enumerate(celt_freqs))
+    say("plc_kernel", cases=checked,
+        worst_ext_err=max(v[1] for v in checked.values()),
+        worst_ext_err_of_peak=max(v[2] for v in checked.values()),
+        worst_lpc_err=max(v[3] for v in checked.values()),
+        lpc_rows_with_other_bits=sum(v[4] for v in checked.values()),
+        worst_freq_err_of_max=freq_err, ext_bar=PLC_EXT_TOL,
+        lpc_bar=PLC_LPC_TOL)
+    base = {2: celt_rows[0], 1: mono_rows[0]}
+    table = {}
+    for S, C in sorted(widths):
+        table[(S, C)] = _plc_times(f"S{S}_C{C}", _rows_of(base[C], S))
+    table["all_lost"] = _plc_times(f"all_lost_S{S_MAIN}_C2", _rows_of(
+        base[2], S_MAIN, lost_all=True))
+    one = _rows_of(base[2], 1, lost_all=True)
+    (consts1, hist1, *rest), kw1 = one
+    chain = ((consts1, hist1[:, :1].contiguous(), *rest[:4],
+              rest[4][:, :1].contiguous()), kw1)
+    table["chain"] = _plc_times("chain_S1_C1", chain)
+    return table
+
+
 def phase_main_path(dev, streams):
     S, F = S_MAIN, 12
     pipe = CeltStreamPipeline(S, channels=2, use_plan=True, device=dev)
@@ -1637,10 +1955,11 @@ def _loss_phase(phase, dev, make_pipe, batch_fn):
     worst_rx, worst_lost, worst_wide = 0.0, 0.0, 0.0
     for f in range(F):
         batch = batch_fn(S_WIDE, f, lost[:, f])
-        got = gpu.step(batch[:S]).cpu().numpy()
+        with _plc_label(phase):
+            got = gpu.step(batch[:S]).cpu().numpy()
+            wide_pcm = wide.step(batch)[:S].cpu().numpy()
         check(bool(np.isfinite(got).all()), f"non-finite pcm at frame {f}")
-        worst_wide = max(worst_wide, float(np.abs(
-            wide.step(batch)[:S].cpu().numpy() - got).max()))
+        worst_wide = max(worst_wide, float(np.abs(wide_pcm - got).max()))
         want = cpu.step(batch[:K]).numpy()
         for s in range(K):
             err = float(np.abs(got[s] - want[s]).max())
@@ -1655,7 +1974,9 @@ def _loss_phase(phase, dev, make_pipe, batch_fn):
     check(worst_wide <= BATCH_TOL,
           f"{phase}: {worst_wide} between S = {S} and the first {S} of "
           f"S = {S_WIDE}")
+    launches = _plc_held(phase, [(S, gpu.channels), (S_WIDE, gpu.channels)])
     say(phase, streams=S, frames=F, loss_share=float(lost[:S].mean()),
+        plc_rows_launches=launches,
         compared_streams=K, worst_err_received=worst_rx,
         worst_err_concealed=worst_lost,
         worst_err_vs_first_of_wide_batch=worst_wide, wide_streams=S_WIDE,
@@ -1671,8 +1992,9 @@ def _batch_stages(phase, make_pipe, batch_fn, n_frames, share, seed,
     frames, lost = batch_stages.lossy_frames(batch_fn, S, n_frames, share,
                                              seed, first_loss)
     check(bool(lost.any()), f"{phase}: no loss drawn")
-    res = batch_stages.split_errors(make_pipe, frames, S,
-                                    {"8x2": (2,) * 8, "5+11": (5, 11)})
+    with _plc_label(f"{phase}_batch"):
+        res = batch_stages.split_errors(make_pipe, frames, S,
+                                        {"8x2": (2,) * 8, "5+11": (5, 11)})
     for label in ("8x2", "5+11"):
         r = res[label]
         say(f"{phase}_batch_{label}", streams=S, frames=n_frames,
@@ -1704,6 +2026,12 @@ def phase_celt_modes(dev, streams):
     """The scanned decode, the chunked stream and the threaded host overlap
     against the stepped output at S = 256 (equal exactly), and the
     non-plan path against the golden PCM."""
+    with _plc_label("celt_modes"):
+        _celt_modes(dev, streams)
+    _plc_held("celt_modes", [(S_MAIN, 2)])
+
+
+def _celt_modes(dev, streams):
     S, F = S_MAIN, 8
     lost = np.zeros((S, F), bool)
     lost[::9, 7] = True                      # concealment inside a chunk
@@ -1927,8 +2255,19 @@ def phase_timing(dev, streams, mono):
         if S == S_MAIN:
             lost = np.zeros(S, bool)
             lost[::10] = True
-            say("profile_S256_lossy", **_profile_step(
-                lambda: pipe.step(celt_batch(6, lost)), "S256_lossy"))
+            with _plc_label("timing"):
+                lossy = _profile_step(lambda: pipe.step(celt_batch(6, lost)),
+                                      "S256_lossy")
+                mixed_lossy = _profile_step(
+                    lambda: mixed.step(mixed_batch(6, lost)),
+                    "mixed_S256_lossy")
+            for name, prof in (("S256_lossy", lossy),
+                               ("mixed_S256_lossy", mixed_lossy)):
+                say(f"profile_{name}", **prof)
+                check(prof["kernel_launches"]["plc_rows"] == 1
+                      and prof["launches"] <= MAX_STEP_LAUNCHES[name],
+                      f"profiled {name} step: {prof['launches']} launches, "
+                      f"plc_rows {prof['kernel_launches']['plc_rows']}")
             lane = OpusStreamPipeline(S, silk_synthesis="device", device=dev)
             for f in range(4):
                 lane.step(mixed_batch(f))
@@ -2870,17 +3209,22 @@ def _mesh_against_single(name, dev, mesh, make_pipe, batch_fn, S, F, lost):
     the worst differences on the streams that have lost nothing yet and
     on the others."""
     single = make_pipe(None)
-    want = [single.step(batch_fn(f, lost[:, f])).cpu().numpy()
-            for f in range(F)]
+    with _plc_label(f"{name}_single"):
+        want = [single.step(batch_fn(f, lost[:, f])).cpu().numpy()
+                for f in range(F)]
     del single
     pipe = make_pipe(mesh)
     _reset_launches()
     got = []
-    for f in range(F):
-        pcm = pipe.step(batch_fn(f, lost[:, f]))
-        check(pcm.device == dev, f"{name}: pcm on {pcm.device}, not {dev}")
-        got.append(pcm.cpu().numpy())
+    with _plc_label(name):
+        for f in range(F):
+            pcm = pipe.step(batch_fn(f, lost[:, f]))
+            check(pcm.device == dev, f"{name}: pcm on {pcm.device}, not "
+                  f"{dev}")
+            got.append(pcm.cpu().numpy())
     torch.cuda.synchronize()
+    # one launch a lossy shard a step
+    _plc_held(name, [(S // mesh.size, got[0].shape[2])])
     launches = deemph.deemphasis_launches
     worst_clean = worst_touched = 0.0
     for f in range(F):
@@ -3361,7 +3705,11 @@ def main() -> int:
                         mono, {"band_assembly": executor_widths,
                                "comb_filter": set(step_widths.values())})
     step_table["pvq_leaf_stage"] = leaf_table
+    plc_table = _phase("plc_kernel", phase_plc_kernel, dev, streams, mono, {
+        (S_MAIN, 2), (S_WIDE, 2), (S_MAIN, 1), (S_WIDE, 1), (shard, 2),
+        (shard, 1)})
     _record_frames()
+    _guard_plc()
     n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
     _phase("loss", phase_loss, dev, streams)
     _phase("celt_modes", phase_celt_modes, dev, streams)
@@ -3457,6 +3805,22 @@ def main() -> int:
         "library_ms": None}
         for path, counts in PATH_LAUNCHES.items() for name in STEP_KERNELS
         if name in counts]
+    # one row for each path that ran the concealment's rows at a width
+    # phase 3d timed: its launches (one a lossy step) beside the times of
+    # a launch at that width with ~10% of the streams lost
+    kernels["kernels"] += [{
+        "name": "plc_rows", "route": "cuda", "source": PLC_KERNEL[1],
+        "replaces": PLC_KERNEL[0], "path": path, "launches": n,
+        **{key: plc_table[(S, C)][key]
+           for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by")},
+        "chain_ms": plc_table["chain"]["ms"],
+        # no PyTorch call computes a clamped order-24 IIR
+        "library_ms": None}
+        for (path, S, C), (_, _, n) in sorted(PLC_LAUNCHES.items())
+        if n and (S, C) in plc_table]
+    say("plc_launches", **{f"{path}_S{S}_C{C}": v for (path, S, C), v
+                           in sorted(PLC_LAUNCHES.items())})
     # the frame sizes the paths decoded, all among those 3c checked
     checked = [*SHORT_FRAMES, FRAME]
     check(FRAMES_DECODED <= set(checked),

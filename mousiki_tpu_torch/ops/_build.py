@@ -9,7 +9,10 @@ loaded with ctypes:
   * the C++ host stages, compiled by `g++` (`load_host`): `celt_host`
     (the CELT symbol decoder), `silk_host` (the SILK decoder) and
     `opus_host` (the TOC-routed mixed stage, which links the other two
-    sources in and so carries its own copy of their globals).
+    sources in and so carries its own copy of their globals);
+  * `plc_rows.h`, the concealment kernel's row arithmetic, compiled by
+    `g++` alone with its array entry points for the CPU tests
+    (`load_plc_rows_host`), without contracting a multiply and an add.
 
 Nothing is compiled when a module is imported: the CPU tests import
 every module on a machine without `nvcc`. A library is compiled to a
@@ -43,6 +46,12 @@ HOST_LIBS = {
     "opus_host": (("opus_host.cpp", "celt_host.cpp", "silk_host.cpp"),
                   ("celt_tables.h", "silk_tables.h")),
 }
+
+# kernel source -> the headers of csrc/ it includes
+KERNEL_HEADERS = {"plc_rows": ("plc_rows.h",)}
+# the row arithmetic's host build: rounded as the device rounds it
+PLC_ROWS_HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off",
+                       "-DPLC_ROWS_HOST_API", "-x", "c++")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -87,7 +96,9 @@ def build(name: str) -> str:
     date; returns the library path. Raises with nvcc's stderr on failure."""
     return _compile([nvcc_path(), *NVCC_FLAGS],
                     [os.path.join(CSRC, f"{name}.cu")],
-                    os.path.join(BUILD, f"lib{name}.so"))
+                    os.path.join(BUILD, f"lib{name}.so"),
+                    tuple(os.path.join(CSRC, h)
+                          for h in KERNEL_HEADERS.get(name, ())))
 
 
 def build_host(name: str = "celt_host") -> str:
@@ -99,6 +110,15 @@ def build_host(name: str = "celt_host") -> str:
                     [os.path.join(CSRC, s) for s in srcs],
                     os.path.join(BUILD, f"lib{name}.so"),
                     tuple(os.path.join(CSRC, h) for h in headers))
+
+
+def build_plc_rows_host() -> str:
+    """Compile csrc/plc_rows.h with its host entry points into
+    build/libplc_rows_host.so unless it is up to date; returns the
+    library path. Raises with g++'s stderr."""
+    return _compile(["g++", *PLC_ROWS_HOST_FLAGS],
+                    [os.path.join(CSRC, "plc_rows.h")],
+                    os.path.join(BUILD, "libplc_rows_host.so"))
 
 
 def _cached(key: str, path_fn) -> ctypes.CDLL:
@@ -118,6 +138,11 @@ def load_host(name: str = "celt_host") -> ctypes.CDLL:
     """The loaded host library `name` (a key of HOST_LIBS), built on
     first call."""
     return _cached(name, lambda: build_host(name))
+
+
+def load_plc_rows_host() -> ctypes.CDLL:
+    """The loaded host build of csrc/plc_rows.h, built on first call."""
+    return _cached("plc_rows_host", build_plc_rows_host)
 
 
 def loaded_host(name: str):

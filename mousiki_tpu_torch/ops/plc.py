@@ -11,10 +11,17 @@ Every sum and product across a row (the correlations, energies, the
 autocorrelation, the Levinson and LPC-synthesis inner products, the
 re-entry MDCT) accumulates in float64 and is rounded to float32 once, so
 that a stream conceals alike whatever batch it shares (_device.py).
+
+The row work between the pitch search and the comb undo (LPC fit,
+residual, decay and excitation, LPC synthesis) is `plc_rows`: one launch
+of a hand-written CUDA kernel (csrc/plc_rows.cu) for CUDA tensors, its
+plain version `plc_rows_reference` for CPU tensors. The pitch search, the
+comb undo, the fold and the re-entry MDCT stay in torch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from .. import _device
+from . import _build
 from ..celt.modes import (CELT_LPC_ORDER, DECODE_BUFFER_SIZE,
                           PLC_PITCH_LAG_MAX, PLC_PITCH_LAG_MIN)
 from ._tables import COMB_GAINS, fold_operator
@@ -32,6 +40,16 @@ from .synthesis import COMB_MIN
 DBS = DECODE_BUFFER_SIZE
 ORDER = CELT_LPC_ORDER
 HIST = 1024  # COMBFILTER_MAXPERIOD: LPC/excitation window
+OVERLAP = 120
+MAX_EXT = 960 + OVERLAP  # the longest extension (csrc/plc_rows.cu kMaxExt)
+
+# kernel launches made by `plc_rows` (not by the plain version)
+plc_rows_launches = 0
+
+
+def reset_launches() -> None:
+    global plc_rows_launches
+    plc_rows_launches = 0
 
 
 class PlcState(NamedTuple):
@@ -52,7 +70,8 @@ def init_plc_state(n_streams: int, channels: int, device) -> PlcState:
 
 def make_plc_consts(frame: int, window, device) -> dict:
     """Static operators: forward-MDCT basis + fold for the re-entry, the
-    Hann LPC window and autocorrelation lag weights."""
+    Hann LPC window, the autocorrelation lag weights and the LPC's
+    bandwidth expansion (made on `device`, whose pow gives its bits)."""
     dev = _device.as_device(device)
     w = np.asarray(window, np.float32)
     han = np.hanning(HIST + 2)[1:-1].astype(np.float32)
@@ -68,6 +87,8 @@ def make_plc_consts(frame: int, window, device) -> dict:
                  t(g2)),
         "han": t(han),
         "lagw": t(lagw),
+        "bw": 0.99 ** torch.arange(1, ORDER + 1, dtype=torch.float32,
+                                   device=dev),
         "comb_gains": t(COMB_GAINS),
     }
 
@@ -123,9 +144,7 @@ def _lpc_fit(consts, hist):
         a2[..., i] = k
         a = a2
         err = err * (1 - k * k)
-    bw = 0.99 ** torch.arange(1, ORDER + 1, dtype=torch.float32,
-                              device=hist.device)
-    return a * bw
+    return a * consts["bw"]
 
 
 def _fir_residual(x, a):
@@ -156,24 +175,24 @@ def _lpc_synthesis(e_ext, tail, lpc):
     return buf[..., ORDER:]
 
 
-def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
-                  frame: int):
-    """PLC re-entry spectrum for all streams (masked use by the caller).
+def plc_rows_reference(consts, hist, first, lost, pitch, fade, lpc_prev, *,
+                       n_ext: int):
+    """The plain version of the row kernel: for every (stream, channel)
+    row, the LPC (fitted to the history where `first`, else `lpc_prev`),
+    the residual of the history through it, the decay from the last two
+    pitch periods' energies, the periodic excitation of n_ext samples
+    faded by `fade` and decayed a period, and its LPC synthesis seeded
+    with the history's last ORDER samples.
 
-    Returns (freq (S, C, frame) full-scale MDCT coefficients, new
-    PlcState). Follows celt/decoder._decode_lost step by step."""
-    S = lost.shape[0]
-    C = channels
-    N = frame
-    mem = state.decode_mem
-    dev = mem.device
-    overlap = 120
-    n_ext = N + overlap
-
-    first = lost & (plc.loss_count == 0)
-    pitch = torch.where(first, _pitch_search(mem), plc.plc_pitch)
-    hist = mem[:, :, DBS - HIST:DBS]
-    lpc = torch.where(first[:, None, None], _lpc_fit(consts, hist), plc.lpc)
+    hist (S, C, HIST) float32; first, lost (S,) bool; pitch (S,) int32;
+    fade (S,) float32; lpc_prev (S, C, ORDER) float32. Returns (lpc (S, C,
+    ORDER), ext (S, C, n_ext)). Every row is computed, lost or not, as the
+    reference computes it (the caller masks); `lost` is the kernel's gate
+    and is not read here."""
+    del lost
+    S, C, _ = hist.shape
+    dev = hist.device
+    lpc = torch.where(first[:, None, None], _lpc_fit(consts, hist), lpc_prev)
 
     exc = _fir_residual(hist, lpc)                  # (S, C, HIST)
     # per-period decay from the last two pitch periods' energies
@@ -189,20 +208,126 @@ def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
     has2 = (2 * p <= HIST)[:, None]
     e2 = torch.where(has2, e2, e1)
     decay = torch.sqrt(torch.clamp(e1 / torch.clamp(e2, min=1e-9), max=1.0))
-    fade = torch.where(plc.loss_count == 0, 1.0, 0.8).to(torch.float32)
-    fade = fade[:, None]
 
     # periodic excitation continuation with per-period attenuation
     nn = torch.arange(n_ext, device=dev)
     src = HIST - p[:, None] + nn[None, :] % p[:, None]        # (S, n_ext)
     periods = nn[None, :] // p[:, None]
     e_src = torch.gather(exc, 2, src[:, None, :].expand(S, C, n_ext))
-    atten = fade[:, :, None] * torch.exp(
+    atten = fade[:, None, None] * torch.exp(
         torch.log(torch.clamp(decay, min=1e-9))[:, :, None]
         * periods[:, None, :].to(torch.float32))
     e_ext = e_src * atten
+    return lpc, _lpc_synthesis(e_ext, hist[..., HIST - ORDER:], lpc)
 
-    ext = _lpc_synthesis(e_ext, mem[:, :, DBS - ORDER:DBS], lpc)
+
+def _plc_kernel():
+    lib = _build.load("plc_rows")
+    fn = lib.mousiki_plc_rows
+    if fn.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn.argtypes = [p, i64, i64, p, p, p, p, p, i64, i64, p, p, p, p, p,
+                       i32, i32, i32, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def build_plc_kernel() -> None:
+    """Compile and load the row kernel now (it is otherwise built on
+    first launch)."""
+    _plc_kernel()
+
+
+def _check_rows(consts, hist, first, lost, pitch, fade, lpc_prev,
+                n_ext: int):
+    """Dtype, shape and device checks of plc_rows' arguments on both
+    routes; returns the device."""
+    if hist.dtype != torch.float32 or hist.dim() != 3 \
+            or hist.shape[-1] != HIST:
+        raise TypeError(f"plc_rows: hist must be (S, C, {HIST}) float32, "
+                        f"got {tuple(hist.shape)} {hist.dtype}")
+    S, C, _ = hist.shape
+    dev = hist.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"plc_rows runs on cpu or cuda, not {dev}")
+    if not 1 <= n_ext <= MAX_EXT:
+        raise ValueError(f"plc_rows: n_ext {n_ext} outside [1, {MAX_EXT}]")
+    want = {"first": (first, torch.bool, (S,)),
+            "lost": (lost, torch.bool, (S,)),
+            "pitch": (pitch, torch.int32, (S,)),
+            "fade": (fade, torch.float32, (S,)),
+            "lpc_prev": (lpc_prev, torch.float32, (S, C, ORDER)),
+            "han": (consts["han"], torch.float32, (HIST,)),
+            "lagw": (consts["lagw"], torch.float32, (ORDER,)),
+            "bw": (consts["bw"], torch.float32, (ORDER,))}
+    for key, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise TypeError(f"plc_rows: {key} must be {shape} {dtype}, got "
+                            f"{tuple(t.shape)} {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"plc_rows: {key} is on {t.device}, hist on "
+                             f"{dev}")
+    return dev
+
+
+def plc_rows(consts, hist, first, lost, pitch, fade, lpc_prev, *,
+             n_ext: int):
+    """The concealment's row work (see plc_rows_reference for the
+    arguments): CPU tensors take `plc_rows_reference`; CUDA tensors launch
+    the kernel once, which computes the rows of lost streams only and
+    gives the others ext = 0 and lpc = lpc_prev. Returns (lpc, ext)."""
+    dev = _check_rows(consts, hist, first, lost, pitch, fade, lpc_prev,
+                      n_ext)
+    if dev.type == "cpu":
+        return plc_rows_reference(consts, hist, first, lost, pitch, fade,
+                                  lpc_prev, n_ext=n_ext)
+    for key, t in (("first", first), ("lost", lost), ("pitch", pitch),
+                   ("fade", fade), ("han", consts["han"]),
+                   ("lagw", consts["lagw"]), ("bw", consts["bw"])):
+        if not t.is_contiguous():
+            raise ValueError(f"plc_rows needs a contiguous {key}")
+    if hist.stride(2) != 1 or lpc_prev.stride(2) != 1:
+        raise ValueError("plc_rows needs hist's and lpc_prev's last axis "
+                         "contiguous")
+    S, C, _ = hist.shape
+    lpc = torch.empty((S, C, ORDER), dtype=torch.float32, device=dev)
+    ext = torch.empty((S, C, n_ext), dtype=torch.float32, device=dev)
+    if S * C == 0:
+        return lpc, ext
+    fn = _plc_kernel()
+    with torch.cuda.device(dev):
+        rc = fn(hist.data_ptr(), hist.stride(0), hist.stride(1),
+                first.data_ptr(), lost.data_ptr(), pitch.data_ptr(),
+                fade.data_ptr(), lpc_prev.data_ptr(), lpc_prev.stride(0),
+                lpc_prev.stride(1), consts["han"].data_ptr(),
+                consts["lagw"].data_ptr(), consts["bw"].data_ptr(),
+                lpc.data_ptr(), ext.data_ptr(), S, C, n_ext,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"plc_rows kernel launch failed: cuda error {rc}")
+    global plc_rows_launches
+    plc_rows_launches += 1
+    return lpc, ext
+
+
+def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
+                  frame: int):
+    """PLC re-entry spectrum for all streams (masked use by the caller).
+
+    Returns (freq (S, C, frame) full-scale MDCT coefficients, new
+    PlcState). Follows celt/decoder._decode_lost step by step."""
+    S = lost.shape[0]
+    C = channels
+    N = frame
+    mem = state.decode_mem
+    dev = mem.device
+    n_ext = N + OVERLAP
+
+    first = lost & (plc.loss_count == 0)
+    pitch = torch.where(first, _pitch_search(mem), plc.plc_pitch)
+    fade = torch.where(plc.loss_count == 0, 1.0, 0.8).to(torch.float32)
+    lpc, ext = plc_rows(consts, mem[:, :, DBS - HIST:DBS], first, lost,
+                        pitch, fade, plc.lpc, n_ext=n_ext)
 
     # comb-filter undo over the re-entry window (decode_mem is in the
     # post-postfilter domain; the TDAC raw tails are pre-postfilter)
@@ -210,17 +335,17 @@ def celt_plc_freq(consts, state, plc: PlcState, lost, *, channels: int,
     T = torch.clamp(state.pf_period, min=COMB_MIN).long()
     g = state.pf_gain
     tg = consts["comb_gains"][state.pf_tapset.long()]          # (S, 3)
-    win = torch.arange(DBS, DBS + N + overlap, device=dev)
+    win = torch.arange(DBS, DBS + n_ext, device=dev)
 
     def tapsum(off):
         idx = (win[None, :] - T[:, None] + off)[:, None, :]
-        return torch.gather(full, 2, idx.expand(S, C, N + overlap))
+        return torch.gather(full, 2, idx.expand(S, C, n_ext))
 
     combv = (tg[:, 0, None, None] * tapsum(0)
              + tg[:, 1, None, None] * (tapsum(1) + tapsum(-1))
              + tg[:, 2, None, None] * (tapsum(2) + tapsum(-2)))
     gv = g[:, None, None]
-    inb = full[:, :, DBS:DBS + N + overlap] - torch.where(
+    inb = full[:, :, DBS:DBS + n_ext] - torch.where(
         gv != 0.0, gv * combv, torch.zeros_like(combv))
 
     i1, i2, g1, g2 = consts["fold"]

@@ -18,6 +18,11 @@ Bars: every lane within the reference's 1e-5 of the whole batch's PCM
 whole batch's, relative to the stage's largest value; integer stages
 (the pitch) equal; the port's pitch equal to the JAX package's on every
 stream of every lossy frame.
+
+This file holds the CELT path's cases,
+tests/test_torch_batch_invariance_mixed.py the others'. (Split so that
+each of the port's test files holds at most 8 cases: the tier-1 suite
+then starts its longest file early.)
 """
 
 from functools import partial
@@ -90,8 +95,13 @@ def runs():
         set_plan_profile()
 
 
-CASES = [(path, split) for path, (_, splits) in PATHS.items()
-         for split in splits]
+def path_cases(*paths):
+    """The (path, split) cases of `paths`: this file holds the CELT
+    path's, tests/test_torch_batch_invariance_mixed.py the others'."""
+    return [(path, split) for path in paths for split in PATHS[path][1]]
+
+
+CASES = path_cases("celt")
 
 
 @pytest.mark.parametrize("path,split", CASES)
@@ -115,7 +125,7 @@ def test_every_stage_matches_the_whole_batch(runs, path, split):
     assert max(stages.values()) <= STAGE_TOL, res[split]
 
 
-@pytest.mark.parametrize("path", ["celt", "mixed"])
+@pytest.mark.parametrize("path", ["celt"])
 def test_plc_pitches_match_jax(runs, path):
     """hazard e: the float64 correlation must not flip a pitch against
     the JAX package's float32 one, on any stream of any lossy frame."""

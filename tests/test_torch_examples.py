@@ -8,7 +8,7 @@ the library:
 - batch decode (S = 2, 6 frames): packets byte-equal to the JAX
   OpusEncoder's, PCM within 1e-5 of the JAX CeltStreamPipeline(2) (its
   non-plan default, as the example's) on the same payloads, the bar of
-  tests/test_torch_pipeline.py for non-plan against JAX;
+  tests/test_torch_pipeline_modes.py for non-plan against JAX;
 - DRED recovery (6 frames, frames 3-4 lost), the JAX models' seeded
   weights carried across: packets byte-equal, the same gap recovered
   through DRED on both sides, PCM within 1e-4
@@ -33,7 +33,7 @@ from mousiki_tpu_torch.repo_files import load_script
 from torch_threads import one_torch_thread  # noqa: F401
 from torch_threads import seeded_jax_model
 
-BATCH_TOL = 1e-5     # tests/test_torch_pipeline.py, non-plan against JAX
+BATCH_TOL = 1e-5     # tests/test_torch_pipeline_modes.py, non-plan vs JAX
 NEURAL_TOL = 1e-4    # tests/test_deep_recovery.py:92
 SECONDS = 0.5
 SYNTH_SECONDS = 0.1     # the seeking example's own file, when given none
