@@ -18,8 +18,9 @@ thing if any module of mousiki_tpu is loaded):
      (csrc/deemphasis.cu, nvcc), the PVQ leaf stage and walk kernels
      (csrc/pvq_leaves.cu), the band assembly kernel
      (csrc/band_assembly.cu), the comb filter kernel
-     (csrc/comb_filter.cu) and the concealment's row kernel
-     (csrc/plc_rows.cu), each source with its build time;
+     (csrc/comb_filter.cu), the concealment's row kernel
+     (csrc/plc_rows.cu) and the two SILK quantizer kernels
+     (csrc/silk_nsq.cu), each source with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -122,6 +123,21 @@ thing if any module of mousiki_tpu is loaded):
      the lost rows' history, carried LPCs, outputs, over HBM bandwidth,
      against its operations over the FP64 peak) and the plain version's
      device time;
+ 3e. the SILK quantizer kernels (ops/silk_nsq.nsq_frame and
+     nsq_del_dec_frame, one launch a quantizer call) against their plain
+     versions on the card, at S = 256 on the quantizer calls of a real
+     encoder run (nsq_cases.py) tiled over the lanes, every 17th lane
+     unused (the executor's defaults): the share of equal pulses a lane
+     >= 0.985 (single state), mean >= 0.9 and half the lanes exactly
+     equal (delayed decision), the unused lanes and 8 lanes whose states
+     tie at every sample exactly equal (pulses and seed_used), lanes that
+     hold the same call equal to each other, and every output equal to
+     the host build of the kernels' arithmetic (csrc/silk_nsq.h, g++);
+     then each kernel's time a call by CUDA events, its bound (the bytes
+     of the call's inputs and outputs over HBM bandwidth against its
+     float operations over the fp32 peak) and share, the time of one
+     sample of the chain, and the plain version's device time and wall
+     time of one call;
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
@@ -180,11 +196,16 @@ thing if any module of mousiki_tpu is loaded):
      run (the copied host encoder on a seeded speech-like signal): share
      of equal pulses a lane >= 0.985 (single state); mean >= 0.9 and half
      the lanes exactly equal (delayed decision); lanes that hold the same
-     call give the same pulses; at the first sample of the delayed
-     decision, state 0 wins in the lanes where all states tie;
+     call give the same pulses; each kernel launched once a call; at the
+     first sample of the delayed decision, state 0 wins in the lanes where
+     all states tie (the plain version on the card, whose torch.argmin
+     is watched), and on those lanes the kernel's pulses and seed_used
+     equal the plain version's;
  13. SILK encode: SilkEncodePipeline(8) for 4 frames at 24 kbit/s on the
      golden mono PCM; stream 0's packets equal a one-stream pipeline's,
-     and every packet decodes in OpusStreamPipeline to finite PCM;
+     every packet decodes in OpusStreamPipeline to finite PCM, and the
+     delayed-decision kernel is launched once a device quantizer call
+     (the executors' dispatches);
  13b. encode quality (mousiki_tpu_torch/quality.py, the chain of
      tools/torch_celt_quality_report.py and torch_silk_quality_report.py,
      against testdata/encode_quality_fixture.npz: the CPU port's packets
@@ -199,7 +220,8 @@ thing if any module of mousiki_tpu is loaded):
      every lane held by the device quantizer, decoded on the card by
      OpusStreamPipeline(2, channels=1), each lane's SNR to the input at
      least the fixture's (libopus's decode of the CPU port's packets)
-     less 3 dB; the share of packets equal to the fixture's printed;
+     less 3 dB, the kernel launched once a device quantizer call; the
+     share of packets equal to the fixture's printed;
  14. timing: steady-state ms/step and aggregate realtime-x through
      decode_stream: the CELT decoder at S = 256 (default, overlap_host,
      chunk=4) and S = 1024, the mixed decoder at S = 256 and S = 1024,
@@ -211,7 +233,9 @@ thing if any module of mousiki_tpu is loaded):
      (24 frames after 8 of warm-up, three runs in turn); and profiled
      steps (kernel launches, the leaf kernels' among them, device busy
      time, host time by stage) of both decoders, the device-SILK lane,
-     one encode step and one frame of each quantizer; the CELT step at
+     one encode step and one executor dispatch of each quantizer at
+     S = 256 (its nsq.h2d / nsq.quantize / nsq.d2h spans; one kernel
+     launch, at most 5 launches in nsq.quantize); the CELT step at
      S = 256 within 700 launches and the mixed step within 700, and one
      lossy CELT and one lossy mixed step (every tenth stream lost) within
      600 each, the row kernel launched once in each;
@@ -334,7 +358,9 @@ band assembly and the comb filter, one row for each path that runs them,
 a step's launches at the path's width, or the lockstep step's own; for
 the concealment's rows, one row for each lossy path and width, its
 launches beside phase 3d's times at that width, with chain_ms the time
-of one row alone); the
+of one row alone; for the quantizers, one row for each path that runs
+them (phases 12, 13 and 13b), its launches beside phase 3e's times at
+S = 256); the
 last
 line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
@@ -364,6 +390,7 @@ import batch_stages
 from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
                             load_mono_mix, load_stereo_celt)
 from comb_cases import comb_calls, comb_rows
+import nsq_cases
 import plc_cases
 from leaf_cases import outside_leaves, synthetic_leaves, synthetic_plan
 from mousiki_tpu_torch._device import operator64, require_cuda
@@ -516,6 +543,22 @@ PLC_KERNEL = ("mousiki_tpu/ops/plc_jax.py:90",
 # (label, S, C) -> [steps, lossy steps, plc_rows launches] on the card
 PLC_PATH = ["other"]
 PLC_LAUNCHES: dict = {}
+# the SILK quantizer kernels: the reference's compiled scan each replaces
+# and the kernel's symbol; kernel -> {path: launches in the path's run}
+NSQ_KERNELS = {
+    "nsq_frame": ("mousiki_tpu/ops/silk_nsq_jax.py:262", "nsq_frame_kernel"),
+    "nsq_del_dec": ("mousiki_tpu/ops/silk_nsq_jax.py:685",
+                    "nsq_del_dec_kernel"),
+}
+NSQ_SOURCE = "mousiki_tpu_torch/csrc/silk_nsq.cu"
+# the widths the paths give each kernel: phase 12 and the profiles at
+# S = 256; SilkEncodePipeline(8) and its one-stream twin (phase 13); the
+# two wide-band lanes of the encode quality chain (phase 13b)
+NSQ_WIDTHS = {"nsq_frame": {S_MAIN}, "nsq_del_dec": {S_MAIN, 8, 1, 2}}
+# kernel -> {(path, S): launches in the path's run}
+NSQ_LAUNCHES: dict = {name: {} for name in NSQ_KERNELS}
+# at most this many launches in a profiled dispatch's nsq.quantize span
+NSQ_MAX_QUANTIZE_LAUNCHES = 5
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -559,8 +602,24 @@ def _timed(fn):
     return round(time.perf_counter() - t0, 3)
 
 
+def _wall_ms(fn) -> float:
+    """Host wall ms of one call of `fn`, the card synchronised before and
+    after it."""
+    return _timed(fn)[1]
+
+
+def _timed(fn):
+    """(the result of one call of `fn`, its host wall ms), the card
+    synchronised before and after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def phase_build():
-    """g++ for the three host libraries and nvcc for the five kernel
+    """g++ for the three host libraries and nvcc for the six kernel
     sources, started together."""
     with ThreadPoolExecutor(max_workers=8) as pool:
         hosts = {name: pool.submit(_timed, partial(_build.build_host, name))
@@ -570,6 +629,7 @@ def phase_build():
         assembly = pool.submit(_timed, band_asm.build_kernel)
         comb = pool.submit(_timed, synthesis.build_comb_kernel)
         rows = pool.submit(_timed, plc.build_plc_kernel)
+        nsq = pool.submit(_timed, silk_nsq.build_kernel)
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
             leaf_kernels="csrc/pvq_leaves.cu",
@@ -579,6 +639,7 @@ def phase_build():
             comb_filter="csrc/comb_filter.cu",
             comb_filter_seconds=comb.result(),
             plc_rows="csrc/plc_rows.cu", plc_rows_seconds=rows.result(),
+            silk_nsq="csrc/silk_nsq.cu", silk_nsq_seconds=nsq.result(),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
 
@@ -738,17 +799,21 @@ def _reset_launches() -> None:
     band_asm.reset_launches()
     synthesis.reset_launches()
     plc.reset_launches()
+    silk_nsq.reset_launches()
 
 
 def _kernel_counts() -> dict:
-    """The launch counts of the kernels a decode step runs besides the
-    de-emphasis: the leaf stage's, the walk's, the band assembly's, the
-    comb filter's and, on a lossy step, the concealment's rows'."""
+    """The launch counts of the kernels besides the de-emphasis: those a
+    decode step runs (the leaf stage's, the walk's, the band assembly's,
+    the comb filter's and, on a lossy step, the concealment's rows') and
+    the SILK quantizers'."""
     return {"pvq_leaf_stage": pvq.leaf_stage_launches,
             "cwrs_walk": pvq.cwrs_walk_launches,
             "band_assembly": band_asm.band_assembly_launches,
             "comb_filter": synthesis.comb_filter_launches,
-            "plc_rows": plc.plc_rows_launches}
+            "plc_rows": plc.plc_rows_launches,
+            "nsq_frame": silk_nsq.nsq_frame_launches,
+            "nsq_del_dec": silk_nsq.nsq_del_dec_launches}
 
 
 def _path_launches(path: str, steps: int, got=None, after_each=None,
@@ -767,6 +832,8 @@ def _path_launches(path: str, steps: int, got=None, after_each=None,
     _guard_plc, step by step."""
     got = dict(_kernel_counts() if got is None else got)
     got.pop("plc_rows", None)
+    for name in NSQ_KERNELS:
+        check(got.pop(name, 0) == 0, f"{path}: {name} launched in a decode")
     if not executor:
         got = {"comb_filter": got["comb_filter"]}
     elif not lockstep:
@@ -1905,6 +1972,167 @@ def phase_plc_kernel(dev, streams, mono, widths):
     return table
 
 
+# ------------------------------------------- the SILK quantizers (3e)
+
+def nsq_work(params, state, outs, del_dec: bool,
+             order: int = silk_nsq.SHAPE_ORDER) -> tuple[int, int]:
+    """(bytes, operations) one quantizer call needs on these inputs: each
+    input and output tensor read or written once (the rotation Lw of the
+    delayed decision once a call); float operations as the plain version
+    does them, a sample's for each stream (and trellis state): the LPC
+    and shaping dot products, the residual, the pulse decision and the
+    updates (the delayed decision adds its two candidates and the warped
+    rotation, order^2 + 2 order - 1); the LTP prediction where the stream
+    is voiced, the harmonic term where its lag is positive; a subframe's
+    scaling of the input, its re-whitening (34 a column) where the
+    stream re-whitens and its rescaling where the gain changed. The
+    penalties and the replacement's copies are left out."""
+    tensors = [*params, *state, *outs[:2], *outs[2]]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    if del_dec:
+        nbytes += 4 * order * order
+    voiced = params.voiced.cpu().numpy()
+    interp = params.interp.cpu().numpy()
+    pitch = params.pitch_l.cpu().numpy().astype(np.int64)
+    gains = np.maximum(params.gains.cpu().numpy(), 1.0 / 65536)
+    prev = state.prev_gain.cpu().numpy()
+    lag = np.where(voiced, pitch[:, 0], state.lag_prev.cpu().numpy())
+    dot = 31 + 2 * order + 1              # LPC dot, AR dot and tilt
+    shared = 3 + 5 + 2 + 4 + 8            # n_lf, residual, decision
+    if del_dec:
+        per = 4 * (dot + shared + 1 + 1 + 2 + 12 + order * order
+                   + 2 * order - 1 + 1) + 2
+    else:
+        per = dot + shared + 6
+    ops = 0
+    for k in range(4):
+        lag = np.where(voiced, pitch[:, k], lag)
+        rewhite = voiced & ((k & np.where(interp, 1, 3)) == 0)
+        changed = gains[:, k] != prev
+        w = np.minimum(lag + 18, 319)
+        seg_end = 320 + 80 * k
+        rw = seg_end - np.maximum(seg_end - w + 16, seg_end - lag - 2)
+        ops += int((80 * (per + 9 * voiced + 5 * (lag > 0)) + 80 + 2).sum())
+        ops += int((34 * rw * rewhite).sum())
+        ops += int((changed * (320 + (lag + 2) * (voiced & ~rewhite)
+                               + (4 * (98 + order) if del_dec else 42)))
+                   .sum())
+        prev = gains[:, k]
+    return nbytes, ops
+
+
+def _nsq_row(name, del_dec, kw, args, got, plain_run) -> dict:
+    """A quantizer kernel's row at the width of `args`: `got` (the
+    kernel's outputs) against the plain version's on the card
+    (`plain_run`: its outputs and wall ms) at nsq_cases.held's bars, and
+    the kernel's time, bound and share beside the plain version's."""
+    want, plain_wall_ms = plain_run
+    agree = nsq_cases.agreement(got, want)
+    why = nsq_cases.held(agree, del_dec)
+    S = args[0].x.shape[0]
+    check(why is None, f"{name} at S = {S} against the plain version on "
+          f"the card: {why}")
+    kernel, plain, _ = nsq_cases.ROUTES[del_dec]
+    run = partial(kernel, *args, **kw)
+    ms, queued = _event_ms(run, 20)
+    nbytes, ops = nsq_work(*args, got, del_dec)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    share = agree["share"]
+    return dict(
+        shape=[S, 320], ms=ms, events_queued=queued,
+        chain_us_a_sample=ms * 1e3 / 320,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, operations=ops,
+        bound_share=max(t_bytes, t_ops) / ms,
+        plain_ms=_device_ms(partial(plain, *args, **kw), reps=1,
+                            device_only=True),
+        plain_wall_ms=plain_wall_ms, call_wall_ms=_wall_ms(run),
+        max_abs_err=float((got[0] - want[0]).abs().max()),
+        min_share=float(share.min()), mean_share=float(share.mean()),
+        lanes_exactly_equal=agree["exact"],
+        state_err_on_exact_lanes=agree["state_err"],
+        seeds_equal_on_exact_lanes=agree["seeds_equal"])
+
+
+def phase_nsq_kernels(dev, widths):
+    """The two quantizer kernels (ops/silk_nsq.py) against their plain
+    versions on the card. At S = 256: the harvested calls and a copy of
+    each voiced one without interpolation (nsq_cases.with_branches) tiled
+    over the lanes, every 17th lane unused, and for the delayed decision
+    8 lanes tied at every sample; every output bit-equal to the host
+    build of the kernels' arithmetic. At every width a path gives a
+    kernel (`widths`: kernel -> set of S), the calls spread over the
+    lanes, each lane's outputs bit-equal to those of the S = 256 lane
+    that holds its call. At each width the pulses, frame, state and seeds
+    against the plain version on the card (nsq_cases.held), then the
+    kernel's time, bound and share and the plain version's. Returns
+    {kernel: {S: row}}."""
+    table = {}
+    for del_dec, name in ((False, "nsq_frame"), (True, "nsq_del_dec")):
+        kernel, plain, host = nsq_cases.ROUTES[del_dec]
+        kw = dict(nsq_cases.KW, warping=nsq_cases.WARPING) if del_dec \
+            else nsq_cases.KW
+        calls = nsq_cases.with_branches(nsq_cases.harvest(del_dec))
+        n = len(calls)
+        S = S_MAIN
+        lanes = np.arange(S) % n
+        lanes[::17] = -1
+        args = nsq_cases.batch(calls, S, dev, del_dec, lanes=lanes)
+        before = _kernel_counts()[name]
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        check(_kernel_counts()[name] == before + 1,
+              f"{name}: not one launch a call")
+        want, plain_wall_ms = _timed(partial(plain, *args, **kw))
+        outs = nsq_cases.flat(got)
+        unused = torch.as_tensor(lanes < 0)
+        check(torch.equal(outs[0][unused], want[0].cpu()[unused])
+              and (not del_dec or torch.equal(outs[1][unused],
+                                              want[1].cpu()[unused])),
+              f"{name}: an unused lane differs from the plain version")
+        firsts = {c: int(np.flatnonzero(lanes == c)[0]) for c in range(n)}
+        same = all(torch.equal(t[s], t[firsts[int(c)]]) for t in outs
+                   for s, c in enumerate(lanes) if c >= 0)
+        check(same, f"{name}: lanes that hold the same call differ")
+        ref = host(*nsq_cases.batch(calls, S, "cpu", del_dec, lanes=lanes),
+                   **kw)
+        host_equal = all(torch.equal(a, b)
+                         for a, b in zip(outs, nsq_cases.flat(ref)))
+        check(host_equal, f"{name}: the kernel differs from the host build "
+              "of its arithmetic")
+        tied_lanes = 0
+        if del_dec:
+            tied = nsq_cases.tied_lanes(8, dev)
+            t_got, t_want = kernel(*tied, **kw), plain(*tied, **kw)
+            check(torch.equal(t_got[0], t_want[0])
+                  and torch.equal(t_got[1], t_want[1]),
+                  f"{name}: a tied lane differs from the plain version")
+            tied_lanes = 8
+        rows = {S: dict(_nsq_row(name, del_dec, kw, args, got,
+                                 (want, plain_wall_ms)),
+                        calls=n, unused_lanes=int(unused.sum()),
+                        tied_lanes=tied_lanes,
+                        kernel_equals_host_build=host_equal)}
+        for W in sorted(widths[name] - {S}):
+            w_lanes = (np.arange(W) * n) // W
+            w_args = nsq_cases.batch(calls, W, dev, del_dec, lanes=w_lanes)
+            w_got = kernel(*w_args, **kw)
+            w_outs = nsq_cases.flat(w_got)
+            check(all(torch.equal(a, b[[firsts[int(c)] for c in w_lanes]])
+                      for a, b in zip(w_outs, outs)),
+                  f"{name} at S = {W}: a lane differs from the S = {S} lane "
+                  "that holds its call")
+            rows[W] = dict(_nsq_row(name, del_dec, kw, w_args, w_got,
+                                    _timed(partial(plain, *w_args, **kw))),
+                           calls=W, equal_to_the_S256_lanes=True)
+        for W, row in sorted(rows.items()):
+            say(f"nsq_kernel_{name}_S{W}", **row)
+        table[name] = rows
+    return table
+
+
 def phase_main_path(dev, streams):
     S, F = S_MAIN, 12
     pipe = CeltStreamPipeline(S, channels=2, use_plan=True, device=dev)
@@ -2386,85 +2614,6 @@ def phase_encode_celt(dev, streams):
         margin_db=ENCODE_SNR_MARGIN_DB, **result)
 
 
-def _speechlike(n, seed=0, frame=320):
-    """Alternating voiced / unvoiced resonator output at int16 scale (the
-    signal of the quantizer tests)."""
-    rng = np.random.default_rng(seed)
-    out = np.zeros(n, np.float64)
-    t = 0
-    voiced = True
-    while t < n:
-        seg = min(n - t, 4 * frame)
-        if voiced:
-            exc = np.zeros(seg)
-            exc[::rng.integers(40, 200)] = 1.0
-            exc += rng.standard_normal(seg) * 0.02
-        else:
-            exc = rng.standard_normal(seg) * 0.3
-        a = 1.8 * np.cos(2 * np.pi * rng.uniform(0.03, 0.12))
-        y = np.zeros(seg)
-        y1 = y2 = 0.0
-        for i in range(seg):
-            y[i] = exc[i] + a * y1 - 0.81 * y2
-            y2, y1 = y1, y[i]
-        out[t:t + seg] = y / (np.abs(y).max() + 1e-9)
-        t += seg
-        voiced = not voiced
-    return out * 9000
-
-
-def _harvest_nsq(del_dec: bool, n_frames=16):
-    """Every wide-band quantizer call of a real encoder run (the copied
-    host SILK encoder at 24 kbit/s on the speech-like signal), each with
-    the quantizer state it started from."""
-    from mousiki_tpu_torch.hostcodec.bitstream.entcode import RangeEncoder
-    from mousiki_tpu_torch.hostcodec.silk import noise_shape, nsq_del_dec
-    from mousiki_tpu_torch.hostcodec.silk.encoder import SilkEncoder
-
-    module, name = ((nsq_del_dec, "nsq_del_dec_best") if del_dec
-                    else (noise_shape, "nsq_shaped"))
-    orig = getattr(module, name)
-    calls = []
-
-    def spy(x, st_nsq, ctl, **kw):
-        req = {"x": np.asarray(x, np.float64).copy(),
-               "st": copy.deepcopy(st_nsq), "ctl": ctl, "kw": dict(kw)}
-        out = orig(x, st_nsq, ctl, **kw)
-        if kw["frame_length"] == 320:
-            calls.append(req)
-        return out
-
-    setattr(module, name, spy)
-    try:
-        enc = SilkEncoder()
-        enc.use_del_dec = del_dec
-        enc.set_fs(16, 16000, 4)
-        sig = _speechlike(320 * (n_frames + 1), seed=1)
-        for f in range(n_frames):
-            rc = RangeEncoder(1300)
-            enc.encode_frame(rc, sig[f * 320:(f + 1) * 320], 4, 24000)
-            rc.done()
-    finally:
-        setattr(module, name, orig)
-    return calls
-
-
-def _nsq_batch(calls, S, device, del_dec):
-    """Lane s holds call s % len(calls): (NsqParams, state) on `device`."""
-    from mousiki_tpu_torch.parallel.nsq_batch import NsqBatchExecutor
-    P, st = NsqBatchExecutor(len(calls), device="cpu").pack_requests(calls)
-    lane = np.arange(S) % len(calls)
-    params = silk_nsq.NsqParams(**{
-        k: torch.from_numpy(v[lane]).to(device) for k, v in P.items()})
-    cls = silk_nsq.NsqDelDecState if del_dec else silk_nsq.NsqDevState
-    return params, cls(**{k: torch.from_numpy(v[lane]).to(device)
-                          for k, v in st.items()})
-
-
-NSQ_KW = dict(nb_subfr=4, sub=80, M=320)
-NSQ_WARPING = 983 * 16 / 65536.0
-
-
 class _FirstArgmin:
     """Inside the block, keeps the input and the result of the first
     torch.argmin call: in nsq_del_dec_frame that is the choice of the
@@ -2489,36 +2638,47 @@ class _FirstArgmin:
 
 def phase_silk_nsq(dev):
     S = S_MAIN
+    KW = nsq_cases.KW
     out = {}
     batches = {}
+    silk_nsq.reset_launches()
     for del_dec in (False, True):
-        calls = _harvest_nsq(del_dec)
+        calls = nsq_cases.harvest(del_dec)
         n = len(calls)
         check(n >= 8, f"{n} quantizer calls harvested")
-        fn = (partial(silk_nsq.nsq_del_dec_frame, warping=NSQ_WARPING)
+        fn = (partial(silk_nsq.nsq_del_dec_frame, warping=nsq_cases.WARPING)
               if del_dec else silk_nsq.nsq_frame)
-        batches[del_dec] = (fn, _nsq_batch(calls, S, dev, del_dec))
-        with _FirstArgmin() as first:
-            got = fn(*batches[del_dec][1], **NSQ_KW)[0].cpu()
-        want = fn(*_nsq_batch(calls, n, "cpu", del_dec), **NSQ_KW)[0]
+        batches[del_dec] = (fn, nsq_cases.batch(calls, S, dev, del_dec))
+        got_all = fn(*batches[del_dec][1], **KW)
+        got = got_all[0].cpu()
+        want = fn(*nsq_cases.batch(calls, n, "cpu", del_dec), **KW)
         check(got.shape == (S, 320) and got.dtype == torch.int32,
               f"pulses {tuple(got.shape)} {got.dtype}")
         lane = torch.arange(S) % n
-        share = (got == want[lane]).float().mean(1)
+        # the CPU port's outputs, lane s holding call s % n
+        agree = nsq_cases.agreement(got_all, (
+            want[0][lane], want[1][lane],
+            type(want[2])(*(t[lane] for t in want[2]))))
+        why = nsq_cases.held(agree, del_dec)
+        check(why is None, f"{'del-dec' if del_dec else 'nsq_frame'} "
+              f"against the CPU port: {why}")
+        share = agree["share"]
         same = int((got == got[lane]).all(1).sum())
         check(same == S, f"{S - same} lanes differ from the first lane that "
               "holds the same call")
         res = dict(calls=n, min_share=float(share.min()),
                    mean_share=float(share.mean()),
-                   lanes_exactly_equal=int((share == 1).sum()),
+                   lanes_exactly_equal=agree["exact"],
+                   state_err_on_exact_lanes=agree["state_err"],
                    lanes_equal_to_their_first_copy=same)
         if del_dec:
-            check(float(share.mean()) >= 0.9,
-                  f"del-dec mean share of equal pulses {share.mean()}")
-            check(int((share == 1).sum()) >= S // 2,
-                  f"del-dec: {int((share == 1).sum())} of {S} lanes equal")
             # the first sample: where every state has the same cost, the
-            # first state wins, on the card as in the reference
+            # first state wins in the plain version on the card (its
+            # torch.argmin watched), and the kernel gives the plain
+            # version's pulses and seed on those lanes
+            with _FirstArgmin() as first:
+                plain = silk_nsq.nsq_del_dec_frame_reference(
+                    *batches[del_dec][1], **KW, warping=nsq_cases.WARPING)
             cost, win = first.seen
             check(cost.is_cuda and cost.shape == (S, silk_nsq.MAX_DD_STATES),
                   f"first-sample costs {tuple(cost.shape)} on {cost.device}")
@@ -2527,14 +2687,22 @@ def phase_silk_nsq(dev):
             check(bool((win[tied] == 0).all()),
                   f"first-sample winners of tied lanes: "
                   f"{sorted(set(win[tied].tolist()))}")
+            check(torch.equal(got_all[0][tied], plain[0][tied])
+                  and torch.equal(got_all[1][tied], plain[1][tied]),
+                  "the kernel's pulses or seeds differ from the plain "
+                  "version's on the lanes tied at the first sample")
             res.update(first_sample_tied_lanes=int(tied.sum()),
                        first_sample_winners_of_tied_lanes=sorted(
                            set(win[tied].tolist())))
-        else:
-            check(float(share.min()) >= 0.985,
-                  f"nsq_frame share of equal pulses {share.min()}")
         out["del_dec" if del_dec else "single"] = res
-    say("silk_nsq", streams=S, **out)
+    counts = _kernel_counts()
+    for name in NSQ_KERNELS:
+        check(counts[name] == 1, f"{name}: {counts[name]} launches in one "
+              "call")
+        NSQ_LAUNCHES[name][("silk_nsq", S)] = counts[name]
+    say("silk_nsq", streams=S, kernel_launches={k: counts[k]
+                                                for k in NSQ_KERNELS},
+        **out)
     return batches
 
 
@@ -2543,6 +2711,7 @@ def phase_encode_silk(dev, mono):
     batched = SilkEncodePipeline(S, bitrate=24000, device=dev)
     solo = SilkEncodePipeline(1, bitrate=24000, device=dev)
     dec = OpusStreamPipeline(S, channels=1, device=dev)
+    silk_nsq.reset_launches()
     t0 = time.perf_counter()
     sizes = []
     for f in range(F):
@@ -2558,11 +2727,49 @@ def phase_encode_silk(dev, mono):
         check(set(int(m) for m in dec.last_modes) == {1},
               f"decoded modes {dec.last_modes}: SILK expected")
         sizes.append([len(p) for p in pkts])
+    seconds = round(time.perf_counter() - t0, 2)
+    _nsq_launches_held("encode_silk", {S: batched._ex.dispatches,
+                                       1: solo._ex.dispatches})
     say("encode_silk", streams=S, frames=F, bitrate=24000,
         device_quantizer_calls=batched._ex.dispatches,
         solo_quantizer_calls=solo._ex.dispatches,
-        packet_bytes_last_frame=sizes[-1],
-        seconds=round(time.perf_counter() - t0, 2))
+        kernel_launches=silk_nsq.nsq_del_dec_launches,
+        packet_bytes_last_frame=sizes[-1], seconds=seconds)
+
+
+def _nsq_launches_held(path: str, dispatches: dict) -> None:
+    """A path's executors quantized through the delayed-decision kernel:
+    one launch for each device quantizer call (`dispatches`: the
+    executors' width -> their calls), and none of the single state's
+    (counts reset just before the path)."""
+    total = sum(dispatches.values())
+    check(total > 0, f"{path}: no device quantizer call")
+    check(silk_nsq.nsq_del_dec_launches == total
+          and silk_nsq.nsq_frame_launches == 0,
+          f"{path}: {silk_nsq.nsq_del_dec_launches} delayed-decision and "
+          f"{silk_nsq.nsq_frame_launches} single-state launches for "
+          f"{total} device quantizer calls")
+    for S, n in dispatches.items():
+        NSQ_LAUNCHES["nsq_del_dec"][(path, S)] = n
+
+
+@contextlib.contextmanager
+def _counted_dispatches():
+    """The NsqBatchExecutor device calls made inside, by the executor's
+    width, in a dict."""
+    from mousiki_tpu_torch.parallel.nsq_batch import NsqBatchExecutor
+    n: dict = {}
+    dispatch = NsqBatchExecutor._dispatch
+
+    def counted(self, reqs):
+        n[self.S] = n.get(self.S, 0) + 1
+        return dispatch(self, reqs)
+
+    NsqBatchExecutor._dispatch = counted
+    try:
+        yield n
+    finally:
+        NsqBatchExecutor._dispatch = dispatch
 
 
 def phase_encode_quality(dev, card):
@@ -2594,10 +2801,13 @@ def phase_encode_quality(dev, card):
                               equal_to_fixture=quality.equal_share(
                                   celt[k], fx["celt_packets"][k])))
     n = quality.FIXTURE_SILK_FRAMES
+    silk_nsq.reset_launches()
     t0 = time.perf_counter()
-    packets, calls = quality.encode_silk_cases(quality.SILK_WIDEBAND,
-                                               device=dev, n_frames=n)
+    with _counted_dispatches() as dispatches:
+        packets, calls = quality.encode_silk_cases(quality.SILK_WIDEBAND,
+                                                   device=dev, n_frames=n)
     t_silk = time.perf_counter() - t0
+    _nsq_launches_held("encode_quality", dispatches)
     check(all(c > 0 for c in calls),
           f"device quantizer calls by lane {calls}: every lane expected")
     x = quality.speech_frames()[: n * FRAME, None]
@@ -2623,7 +2833,8 @@ def phase_encode_quality(dev, card):
         celt_frames=frames,
         celt_encode_seconds=round(t_encode, 1),
         celt_decode_score_seconds=round(t_decode, 1),
-        silk_encode_seconds=round(t_silk, 1))
+        silk_encode_seconds=round(t_silk, 1),
+        silk_device_quantizer_calls=sum(dispatches.values()))
     check(launches == frames, f"encode quality decode: {launches} "
           f"deemphasis launches in {frames} frames: one a frame expected")
     _path_launches("encode_quality", frames, got=leaf)
@@ -2672,12 +2883,26 @@ def phase_encode_timing(dev, streams, nsq_batches):
             realtime_x=S * 0.02 / (median / 1e3))
     pipe = pipes["encode_step"]
     _profile(f"encode_step_S{S}", lambda f: pipe.step(frames[f]))
+    # one executor dispatch of each quantizer at S = 256 (the harvested
+    # calls tiled), profiled after one unprofiled: its spans' host time
+    # and launches, one kernel launch a dispatch
     for del_dec, (fn, args) in nsq_batches.items():
+        kernel = "nsq_del_dec" if del_dec else "nsq_frame"
         name = f"nsq_{'del_dec' if del_dec else 'frame'}_S{S}"
-        wall_ms = _timed(lambda: (fn(*args, **NSQ_KW),
-                                  torch.cuda.synchronize())) * 1e3
+        wall_ms = _wall_ms(lambda: fn(*args, **nsq_cases.KW))
+        ex, reqs = nsq_cases.executor_requests(
+            nsq_cases.harvest(del_dec), S, del_dec, dev)
+        dispatch_ms = _wall_ms(lambda: ex._dispatch(reqs))
+        prof = _profile_step(lambda: ex._dispatch(reqs), name)
+        check(prof["kernel_launches"][kernel] == 1 and ex.dispatches == 2,
+              f"{name}: {prof['kernel_launches'][kernel]} kernel launches "
+              "in one dispatch")
+        quantize = prof["launches_by_span"].get("nsq.quantize", 0)
+        check(quantize <= NSQ_MAX_QUANTIZE_LAUNCHES,
+              f"{name}: {quantize} launches in nsq.quantize, at most "
+              f"{NSQ_MAX_QUANTIZE_LAUNCHES} expected")
         say(f"profile_{name}", unprofiled_wall_ms=wall_ms,
-            **_profile_step(lambda: fn(*args, **NSQ_KW), name))
+            unprofiled_dispatch_ms=dispatch_ms, **prof)
 
 
 # ------------------------------------------------------- neural recovery
@@ -3708,6 +3933,7 @@ def main() -> int:
     plc_table = _phase("plc_kernel", phase_plc_kernel, dev, streams, mono, {
         (S_MAIN, 2), (S_WIDE, 2), (S_MAIN, 1), (S_WIDE, 1), (shard, 2),
         (shard, 1)})
+    nsq_table = _phase("nsq_kernels", phase_nsq_kernels, dev, NSQ_WIDTHS)
     _record_frames()
     _guard_plc()
     n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
@@ -3819,6 +4045,23 @@ def main() -> int:
         "library_ms": None}
         for (path, S, C), (_, _, n) in sorted(PLC_LAUNCHES.items())
         if n and (S, C) in plc_table]
+    # one row for each path and width that ran a quantizer kernel: its
+    # launches (one a device quantizer call) beside phase 3e's times at
+    # that width
+    for name, paths in NSQ_LAUNCHES.items():
+        check(all(S in nsq_table[name] for _, S in paths),
+              f"{name}: widths {sorted({S for _, S in paths})} on the "
+              f"paths, phase 3e timed {sorted(nsq_table[name])}")
+    kernels["kernels"] += [{
+        "name": name, "route": "cuda", "source": NSQ_SOURCE,
+        "replaces": NSQ_KERNELS[name][0], "path": path, "launches": n,
+        **{key: nsq_table[name][S][key]
+           for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "chain_us_a_sample")},
+        # no PyTorch call computes a noise-shaping quantizer
+        "library_ms": None}
+        for name, paths in NSQ_LAUNCHES.items()
+        for (path, S), n in sorted(paths.items())]
     say("plc_launches", **{f"{path}_S{S}_C{C}": v for (path, S, C), v
                            in sorted(PLC_LAUNCHES.items())})
     # the frame sizes the paths decoded, all among those 3c checked

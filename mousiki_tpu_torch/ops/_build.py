@@ -10,9 +10,10 @@ loaded with ctypes:
     (the CELT symbol decoder), `silk_host` (the SILK decoder) and
     `opus_host` (the TOC-routed mixed stage, which links the other two
     sources in and so carries its own copy of their globals);
-  * `plc_rows.h`, the concealment kernel's row arithmetic, compiled by
-    `g++` alone with its array entry points for the CPU tests
-    (`load_plc_rows_host`), without contracting a multiply and an add.
+  * `plc_rows.h` and `silk_nsq.h`, the arithmetic of the concealment's
+    row kernel and of the quantizer kernels, each compiled by `g++` alone
+    with its array entry points for the CPU tests (`load_header_host`),
+    without contracting a multiply and an add.
 
 Nothing is compiled when a module is imported: the CPU tests import
 every module on a machine without `nvcc`. A library is compiled to a
@@ -48,10 +49,13 @@ HOST_LIBS = {
 }
 
 # kernel source -> the headers of csrc/ it includes
-KERNEL_HEADERS = {"plc_rows": ("plc_rows.h",)}
-# the row arithmetic's host build: rounded as the device rounds it
-PLC_ROWS_HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off",
-                       "-DPLC_ROWS_HOST_API", "-x", "c++")
+KERNEL_HEADERS = {"plc_rows": ("plc_rows.h",), "silk_nsq": ("silk_nsq.h",)}
+# a kernel's arithmetic built for the host, rounded as the device rounds
+# it: header -> the macro that adds its entry points
+HEADER_HOST_APIS = {"plc_rows": "PLC_ROWS_HOST_API",
+                    "silk_nsq": "SILK_NSQ_HOST_API"}
+HEADER_HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off", "-x",
+                     "c++")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -112,13 +116,22 @@ def build_host(name: str = "celt_host") -> str:
                     tuple(os.path.join(CSRC, h) for h in headers))
 
 
+def build_header_host(name: str) -> str:
+    """Compile csrc/<name>.h (a key of HEADER_HOST_APIS) with its host
+    entry points into build/lib<name>_host.so unless it is up to date;
+    returns the library path. Raises with g++'s stderr."""
+    return _compile(["g++", *HEADER_HOST_FLAGS,
+                     f"-D{HEADER_HOST_APIS[name]}"],
+                    [os.path.join(CSRC, f"{name}.h")],
+                    os.path.join(BUILD, f"lib{name}_host.so"))
+
+
 def build_plc_rows_host() -> str:
-    """Compile csrc/plc_rows.h with its host entry points into
-    build/libplc_rows_host.so unless it is up to date; returns the
-    library path. Raises with g++'s stderr."""
-    return _compile(["g++", *PLC_ROWS_HOST_FLAGS],
-                    [os.path.join(CSRC, "plc_rows.h")],
-                    os.path.join(BUILD, "libplc_rows_host.so"))
+    return build_header_host("plc_rows")
+
+
+def build_silk_nsq_host() -> str:
+    return build_header_host("silk_nsq")
 
 
 def _cached(key: str, path_fn) -> ctypes.CDLL:
@@ -140,9 +153,17 @@ def load_host(name: str = "celt_host") -> ctypes.CDLL:
     return _cached(name, lambda: build_host(name))
 
 
+def load_header_host(name: str) -> ctypes.CDLL:
+    """The loaded host build of csrc/<name>.h, built on first call."""
+    return _cached(f"{name}_host", lambda: build_header_host(name))
+
+
 def load_plc_rows_host() -> ctypes.CDLL:
-    """The loaded host build of csrc/plc_rows.h, built on first call."""
-    return _cached("plc_rows_host", build_plc_rows_host)
+    return load_header_host("plc_rows")
+
+
+def load_silk_nsq_host() -> ctypes.CDLL:
+    return load_header_host("silk_nsq")
 
 
 def loaded_host(name: str):

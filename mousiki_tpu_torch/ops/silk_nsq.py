@@ -4,15 +4,17 @@ mousiki_tpu/ops/silk_nsq_jax.py.
 S encoder streams quantize one frame a call, as (S,)-wide lanes. The
 quantizer's feedback (the shaping filter over the quantization error, the
 one-sample low-frequency and tilt recurrences, the rate-distortion pulse
-decision) is serial in the sample, so each of the two quantizers is a
-Python loop over the samples of a subframe, a few dozen small tensor ops
-a sample:
+decision) is serial in the sample. Each quantizer is a wrapper over two
+routes: CPU tensors take its plain version, a Python loop over the samples
+of a subframe, a few dozen small tensor ops a sample; CUDA tensors launch
+its hand-written kernel once (csrc/silk_nsq.cu, one block a stream, the
+arithmetic in csrc/silk_nsq.h):
 
-  * `nsq_frame`: the single-state quantizer;
-  * `nsq_del_dec_frame`: the delayed-decision quantizer, (S, N) trellis
-    lanes with the decision-delay rings on a third axis; committed
-    (delayed) samples land in the shared work buffers at the per-stream
-    column t - dd[s].
+  * `nsq_frame` (`nsq_frame_reference`): the single-state quantizer;
+  * `nsq_del_dec_frame` (`nsq_del_dec_frame_reference`): the
+    delayed-decision quantizer, (S, N) trellis lanes with the
+    decision-delay rings on a third axis; committed (delayed) samples
+    land in the shared work buffers at the per-stream column t - dd[s].
 
 Semantics follow the reference (and through it silk/noise_shape.py and
 silk/nsq_del_dec.py of the host codec): explicit state in and out, work
@@ -25,15 +27,23 @@ equal for all streams, is a Python integer.
 
 The random dither is the SILK linear congruential generator in int32,
 which wraps on overflow on the CPU and on CUDA alike.
+
+The kernels take the executor's shape only (parallel/nsq_batch.py: 4
+subframes of 80 samples, M = 320, order <= 24, 4 trellis states) and
+raise on another; `nsq_frame_host` and `nsq_del_dec_frame_host` run the
+kernels' arithmetic on CPU tensors through the host build of
+csrc/silk_nsq.h (the CPU tests).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from .. import _device
+from . import _build
 
 LTP_ORDER = 5
 SHAPE_ORDER = 24
@@ -45,6 +55,17 @@ DECISION_DELAY = 40
 MAX_DD_STATES = 4
 BIG_RD = float(2.0 ** 27)
 _MIN_GAIN = 1.0 / 65536.0
+
+# kernel launches made by `nsq_frame` and `nsq_del_dec_frame` (not by the
+# plain versions)
+nsq_frame_launches = 0
+nsq_del_dec_launches = 0
+
+
+def reset_launches() -> None:
+    global nsq_frame_launches, nsq_del_dec_launches
+    nsq_frame_launches = 0
+    nsq_del_dec_launches = 0
 
 
 class NsqParams(NamedTuple):
@@ -213,10 +234,12 @@ def _scale_where(buf, mask, adj):
     buf.copy_(torch.where(mask, buf * adj[:, None], buf))
 
 
-def nsq_frame(params: NsqParams, state: NsqDevState, *, nb_subfr: int = 4,
-              sub: int = 80, M: int = 320, order: int = SHAPE_ORDER):
-    """Quantize one frame for S streams. Returns (pulses (S, L) int32,
-    xq_frame (S, L) unscaled quantized output, new state)."""
+def nsq_frame_reference(params: NsqParams, state: NsqDevState, *,
+                        nb_subfr: int = 4, sub: int = 80, M: int = 320,
+                        order: int = SHAPE_ORDER):
+    """The plain version of `nsq_frame`: quantize one frame for S streams.
+    Returns (pulses (S, L) int32, xq_frame (S, L) unscaled quantized
+    output, new state)."""
     S = params.x.shape[0]
     L = nb_subfr * sub
     dev = params.x.device
@@ -342,11 +365,12 @@ _RQ, _RXQ, _RPRED, _RSHAPE = range(4)
 _WXQ, _WSHP, _WLTP = range(3)
 
 
-def nsq_del_dec_frame(params: NsqParams, state: NsqDelDecState, *,
-                      nb_subfr: int = 4, sub: int = 80, M: int = 320,
-                      order: int = SHAPE_ORDER,
-                      n_states: int = MAX_DD_STATES, warping=0.0):
-    """Delayed-decision quantize of one frame for S streams.
+def nsq_del_dec_frame_reference(params: NsqParams, state: NsqDelDecState,
+                                *, nb_subfr: int = 4, sub: int = 80,
+                                M: int = 320, order: int = SHAPE_ORDER,
+                                n_states: int = MAX_DD_STATES, warping=0.0):
+    """The plain version of `nsq_del_dec_frame`: delayed-decision quantize
+    of one frame for S streams.
 
     Returns (pulses (S, L) int32, seed_used (S,) int32, new state).
     warping: a number or an (S,) tensor, the allpass coefficient of the
@@ -619,3 +643,262 @@ def nsq_del_dec_frame(params: NsqParams, state: NsqDelDecState, *,
         prev_gain=prev_gain)
     seed_used = seed_init.gather(1, win1)[:, 0]
     return pulses, seed_used, new_state
+
+
+# ---------------------------------------------------------------------------
+# The kernels (csrc/silk_nsq.cu) and the host build of their arithmetic
+# (csrc/silk_nsq.h): one launch a call, one block a stream.
+# ---------------------------------------------------------------------------
+
+# the executor's shape, the only one the kernels take
+KERNEL_SHAPE = {"nb_subfr": 4, "sub": 80, "M": 320}
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+_NB, _FRAME = KERNEL_SHAPE["nb_subfr"], KERNEL_SHAPE["sub"] * 4
+# A batch's arrays at the kernels' shape, (name, dtype, a lane's shape), in
+# the order of NsqArg in csrc/silk_nsq.h: the parameters (NsqParams'
+# fields), the state (NsqDevState's), then, after the warping and its
+# rotation, the outputs. parallel/nsq_batch.py stages the first two.
+PARAM_FIELDS = (
+    ("x", _F32, (_FRAME,)), ("a", _F32, (2, LPC_ORDER)),
+    ("b", _F32, (_NB, LTP_ORDER)), ("ar_shp", _F32, (_NB, SHAPE_ORDER)),
+    ("harm", _F32, (_NB,)), ("tilt", _F32, (_NB,)), ("lf_ma", _F32, (_NB,)),
+    ("lf_ar", _F32, (_NB,)), ("gains", _F32, (_NB,)),
+    ("pitch_l", _I32, (_NB,)), ("lam", _F32, ()), ("offset", _F32, ()),
+    ("voiced", _BOOL, ()), ("seed", _I32, ()), ("ltp_scale", _F32, ()),
+    ("interp", _BOOL, ()))
+STATE_FIELDS = (
+    ("xq", _F32, (KERNEL_SHAPE["M"],)), ("shp", _F32, (KERNEL_SHAPE["M"],)),
+    ("s_lpc", _F32, (LPC_ORDER,)), ("s_ar2", _F32, (SHAPE_ORDER,)),
+    ("s_lf_ar", _F32, ()), ("s_diff", _F32, ()), ("lag_prev", _I32, ()),
+    ("prev_gain", _F32, ()))
+# pulses, the single state's unscaled frame, the delayed decision's
+# winning seed, the new state
+OUTPUT_FIELDS = (("pulses", _I32, (_FRAME,)), ("xq_frame", _F32, (_FRAME,)),
+                 ("seed_used", _I32, ()), *STATE_FIELDS)
+_N_ARGS = len(PARAM_FIELDS) + len(STATE_FIELDS) + 2 + len(OUTPUT_FIELDS)
+
+
+def _kernel_inputs(params: NsqParams, state, nb_subfr: int, sub: int,
+                   M: int, order: int) -> tuple[list, torch.device]:
+    """Check a call against what the kernels take (the executor's shape,
+    the dtypes the executor gives, every tensor on one device); returns
+    the parameters and the state, contiguous, in NsqArg's order, and the
+    device. Raises on anything else."""
+    if {"nb_subfr": nb_subfr, "sub": sub, "M": M} != KERNEL_SHAPE:
+        raise ValueError(f"the quantizer kernels take {KERNEL_SHAPE}, got "
+                         f"nb_subfr={nb_subfr}, sub={sub}, M={M}")
+    if not 1 <= order <= SHAPE_ORDER:
+        raise ValueError(f"order {order} outside [1, {SHAPE_ORDER}]")
+    S = params.x.shape[0]
+    dev = params.x.device
+    out = []
+    for (name, dtype, lane), t in zip((*PARAM_FIELDS, *STATE_FIELDS),
+                                      (*params, *state)):
+        if t.dtype != dtype or tuple(t.shape) != (S, *lane):
+            raise TypeError(f"{name} must be {(S, *lane)} {dtype}, got "
+                            f"{tuple(t.shape)} {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        out.append(t.contiguous())
+    return out, dev
+
+
+def _outputs(S: int, dev, del_dec: bool) -> dict:
+    """A quantizer's outputs, uninitialised (the kernel writes every
+    element): pulses, the unscaled frame (single state) or the winning
+    seed (delayed decision), the new state."""
+    skip = "xq_frame" if del_dec else "seed_used"
+    return {name: torch.empty((S, *lane), dtype=dtype, device=dev)
+            for name, dtype, lane in OUTPUT_FIELDS if name != skip}
+
+
+def _pointers(inputs: list, w, lw, outs: dict):
+    """The array of NsqArg's pointers (0 for what the call does not use)."""
+    ptrs = [t.data_ptr() for t in inputs]
+    ptrs += [0 if t is None else t.data_ptr() for t in (w, lw)]
+    ptrs += [outs[name].data_ptr() if name in outs else 0
+             for name, *_ in OUTPUT_FIELDS]
+    return (ctypes.c_void_p * _N_ARGS)(*ptrs)
+
+
+def _rotation(w: torch.Tensor, order: int) -> torch.Tensor:
+    """Lw[s, j, m] = (-w[s])^(j - m) for j >= m, else 0: the plain
+    version's expression, for w of shape (n,)."""
+    jj = torch.arange(order, device=w.device)
+    dpow = jj[:, None] - jj[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=w.device)
+    return torch.where(dpow >= 0,
+                       torch.pow(-w[:, None, None], torch.clamp(dpow, min=0)),
+                       zero)
+
+
+# (warping, order, device) -> (w (1,), Lw (1, order, order)) of a warping
+# given as a number on the card: built once, read by every stream
+# (stride 0)
+_ROTATIONS: dict = {}
+
+
+def _warp_args(warping, S: int, order: int, dev, per_stream: bool):
+    """(w, w stride, Lw, Lw stride) of the delayed decision on `dev`: for
+    every stream as the plain version builds them where `per_stream` (or
+    the warping is a tensor), else once for a number."""
+    if per_stream or isinstance(warping, torch.Tensor):
+        w = torch.as_tensor(warping, dtype=torch.float32, device=dev) \
+            .expand(S).contiguous()
+        return w, 1, _rotation(w, order).contiguous(), order * order
+    key = (float(warping), order, str(dev))
+    if key not in _ROTATIONS:
+        w = torch.as_tensor(warping, dtype=torch.float32,
+                            device=dev).reshape(1)
+        _ROTATIONS[key] = (w, _rotation(w, order).contiguous())
+    w, lw = _ROTATIONS[key]
+    return w, 0, lw, 0
+
+
+_P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# each entry point's arguments: the pointer array, S and order, the
+# delayed decision's strides of w and Lw, the kernels' CUDA stream
+_ARGTYPES = {
+    "mousiki_nsq_frame": [_P, _INT, _INT, _P],
+    "mousiki_nsq_del_dec": [_P, _INT, _INT, _I64, _I64, _P],
+    "silk_nsq_host_frame": [_P, _INT, _INT],
+    "silk_nsq_host_del_dec": [_P, _INT, _INT, _I64, _I64],
+}
+
+
+def _entry(lib, symbol: str):
+    fn = getattr(lib, symbol)
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_kernel() -> None:
+    """Compile and load the quantizer kernels now (they are otherwise
+    built on first launch)."""
+    _build.load("silk_nsq")
+
+
+def _run(params, state, nb_subfr: int, sub: int, M: int, order: int,
+         warping, host: bool) -> dict:
+    """One quantizer call (the delayed decision where `warping` is not
+    None) through the kernel, on CUDA tensors, or through the host build
+    of its arithmetic, on CPU tensors (`host`); returns the outputs."""
+    inputs, dev = _kernel_inputs(params, state, nb_subfr, sub, M, order)
+    if host != (dev.type == "cpu"):
+        raise ValueError(f"the {'host build' if host else 'kernel'} does "
+                         f"not take tensors on {dev}")
+    del_dec = warping is not None
+    S = params.x.shape[0]
+    outs = _outputs(S, dev, del_dec)
+    if S == 0:
+        return outs
+    w = lw = None
+    strides = ()
+    if del_dec:
+        w, w_stride, lw, lw_stride = _warp_args(warping, S, order, dev, host)
+        strides = (w_stride, lw_stride)
+    ptrs = _pointers(inputs, w, lw, outs)
+    name = "del_dec" if del_dec else "frame"
+    if host:
+        symbol = f"silk_nsq_host_{name}"
+        rc = _entry(_build.load_silk_nsq_host(), symbol)(ptrs, S, order,
+                                                         *strides)
+    else:
+        symbol = f"mousiki_nsq_{name}"
+        fn = _entry(_build.load("silk_nsq"), symbol)
+        with torch.cuda.device(dev):
+            rc = fn(ptrs, S, order, *strides,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: "
+                           f"{'' if host else 'cuda error '}{rc}")
+    return outs
+
+
+def _frame_result(outs: dict):
+    return (outs["pulses"], outs["xq_frame"],
+            NsqDevState(*(outs[k] for k in NsqDevState._fields)))
+
+
+def _del_dec_result(outs: dict):
+    return (outs["pulses"], outs["seed_used"],
+            NsqDelDecState(*(outs[k] for k in NsqDelDecState._fields)))
+
+
+def _on_cpu(params: NsqParams) -> bool:
+    dev = params.x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the quantizers run on cpu or cuda, not {dev}")
+    return dev.type == "cpu"
+
+
+def _states(n_states: int) -> None:
+    if n_states != MAX_DD_STATES:
+        raise ValueError(f"the delayed-decision kernel runs "
+                         f"{MAX_DD_STATES} states, not {n_states}")
+
+
+def nsq_frame(params: NsqParams, state: NsqDevState, *, nb_subfr: int = 4,
+              sub: int = 80, M: int = 320, order: int = SHAPE_ORDER):
+    """Quantize one frame for S streams. Returns (pulses (S, L) int32,
+    xq_frame (S, L) unscaled quantized output, new state).
+
+    CPU tensors take `nsq_frame_reference`; CUDA tensors launch
+    nsq_frame_kernel once, and raise on a shape, dtype or device the
+    kernel does not take."""
+    if _on_cpu(params):
+        return nsq_frame_reference(params, state, nb_subfr=nb_subfr,
+                                   sub=sub, M=M, order=order)
+    outs = _run(params, state, nb_subfr, sub, M, order, None, host=False)
+    if params.x.shape[0]:
+        global nsq_frame_launches
+        nsq_frame_launches += 1
+    return _frame_result(outs)
+
+
+def nsq_del_dec_frame(params: NsqParams, state: NsqDelDecState, *,
+                      nb_subfr: int = 4, sub: int = 80, M: int = 320,
+                      order: int = SHAPE_ORDER,
+                      n_states: int = MAX_DD_STATES, warping=0.0):
+    """Delayed-decision quantize of one frame for S streams.
+
+    Returns (pulses (S, L) int32, seed_used (S,) int32, new state).
+    warping: a number or an (S,) tensor, the allpass coefficient of the
+    shaping chain (0 = a plain delay line).
+
+    CPU tensors take `nsq_del_dec_frame_reference`; CUDA tensors launch
+    nsq_del_dec_kernel once (its rotation Lw built by the plain version's
+    expression, once for a warping given as a number), and raise on a
+    shape, dtype, device or number of states the kernel does not take."""
+    if _on_cpu(params):
+        return nsq_del_dec_frame_reference(
+            params, state, nb_subfr=nb_subfr, sub=sub, M=M, order=order,
+            n_states=n_states, warping=warping)
+    _states(n_states)
+    outs = _run(params, state, nb_subfr, sub, M, order, warping, host=False)
+    if params.x.shape[0]:
+        global nsq_del_dec_launches
+        nsq_del_dec_launches += 1
+    return _del_dec_result(outs)
+
+
+def nsq_frame_host(params: NsqParams, state: NsqDevState, *,
+                   nb_subfr: int = 4, sub: int = 80, M: int = 320,
+                   order: int = SHAPE_ORDER):
+    """`nsq_frame` on CPU tensors through the host build of the kernel's
+    arithmetic (csrc/silk_nsq.h), the streams one after another."""
+    return _frame_result(_run(params, state, nb_subfr, sub, M, order, None,
+                              host=True))
+
+
+def nsq_del_dec_frame_host(params: NsqParams, state: NsqDelDecState, *,
+                           nb_subfr: int = 4, sub: int = 80, M: int = 320,
+                           order: int = SHAPE_ORDER,
+                           n_states: int = MAX_DD_STATES, warping=0.0):
+    """`nsq_del_dec_frame` on CPU tensors through the host build of the
+    kernel's arithmetic, the rotation Lw built for every stream as the
+    plain version builds it."""
+    _states(n_states)
+    return _del_dec_result(_run(params, state, nb_subfr, sub, M, order,
+                                warping, host=True))

@@ -13,9 +13,11 @@ call a quantizer round:
     the encoder would call its host quantizer, calls the injected hook;
   * the hook parks the thread on a barrier; when no worker is runnable
     (all parked or finished), the coordinator gathers the parked calls
-    into one batch, moves it to the device once, runs the quantizer
-    once, reads pulses and state back once, writes each lane's pulses and
-    state back and releases the threads.
+    into one batch, moves it to the device in one copy (every parameter
+    and state array packed into one byte buffer, `_Staging`), runs the
+    quantizer once (one kernel launch on a GPU), reads pulses and state
+    back in one copy, writes each lane's pulses and state back and
+    releases the threads.
 
 All device work happens on the coordinator's thread (the caller of
 `run`), so one CUDA stream carries it. Calls outside the device
@@ -44,6 +46,84 @@ _SUB = _L // _NB
 _ORDER = 24                  # shaping AR capacity (silk_nsq.SHAPE_ORDER)
 _WARPING = 983 * _FS_KHZ / 65536.0
 
+# a batch's arrays, (name, dtype, a lane's shape): the kernels' table
+_PARAMS, _STATE = silk_nsq.PARAM_FIELDS, silk_nsq.STATE_FIELDS
+# the unused lanes' values (harmless defaults; 0 elsewhere)
+_DEFAULTS = {"gains": 1, "pitch_l": 64, "ltp_scale": 1, "prev_gain": 1}
+
+
+def _nbytes(dtype: torch.dtype, shape) -> int:
+    return int(np.prod(shape)) * dtype.itemsize
+
+
+class _Staging:
+    """The byte buffers of a device call. The parameter and state arrays
+    lie in one buffer, field after field, each at a 16-byte boundary, and
+    go to the device in one copy, as typed views of one device buffer; the
+    outputs come back in one copy. On a GPU both host buffers are
+    page-locked and kept; the copy to the device is asynchronous and
+    records an event, and `host_arrays` waits on it before the buffer is
+    written again (as pipeline._HostStaging does). On the CPU the device
+    buffer is a copy, never an alias of the reused one."""
+
+    def __init__(self, n_slots: int, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.fields = []        # (name, dtype, (S, ...), byte offset)
+        off = 0
+        for name, dtype, lane in (*_PARAMS, *_STATE):
+            full = (n_slots, *lane)
+            self.fields.append((name, dtype, full, off))
+            off += -(-_nbytes(dtype, full) // 16) * 16
+        self.host = torch.zeros(off, dtype=torch.uint8, pin_memory=self.cuda)
+        self._event = None
+        self._back = None       # the read-back buffer, kept
+
+    @staticmethod
+    def _views(buf: torch.Tensor, layout) -> dict:
+        """Typed views of a byte tensor, (name, dtype, shape, offset)."""
+        return {name: buf[off:off + _nbytes(dtype, shape)].view(dtype)
+                .view(shape) for name, dtype, shape, off in layout}
+
+    def host_arrays(self) -> dict:
+        """Every field as a numpy view of the host buffer, set to the
+        unused lanes' defaults, once the last copy out of it is done."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        views = {name: v.numpy()
+                 for name, v in self._views(self.host, self.fields).items()}
+        for name, v in views.items():
+            v[...] = _DEFAULTS.get(name, 0)
+        return views
+
+    def to_device(self) -> dict:
+        """Every field as a tensor on the device: views of one copy of the
+        host buffer."""
+        if self.cuda:
+            dev = self.host.to(self.device, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(self.device))
+        else:
+            dev = self.host.clone()
+        return self._views(dev, self.fields)
+
+    def read_back(self, tensors) -> list:
+        """The tensors as numpy arrays, through one device-side gather of
+        their bytes and one copy to the host (valid until the next
+        read_back)."""
+        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+        if self._back is None or self._back.numel() != flat.numel():
+            self._back = torch.empty(flat.numel(), dtype=torch.uint8,
+                                     pin_memory=self.cuda)
+        self._back.copy_(flat)
+        layout, off = [], 0
+        for i, t in enumerate(tensors):
+            layout.append((i, t.dtype, tuple(t.shape), off))
+            off += _nbytes(t.dtype, t.shape)
+        views = self._views(self._back, layout)
+        return [views[i].numpy() for i in range(len(tensors))]
+
 
 class NsqBatchExecutor:
     """Runs S encode tasks on threads, batching their quantizer calls.
@@ -61,6 +141,7 @@ class NsqBatchExecutor:
         # device quantizer calls that held each task's lane (task i of
         # every `run`), so far
         self.lane_dispatches = [0] * n_slots
+        self._staging = _Staging(n_slots, self.device)
         self._task = threading.local()
         self._cv = threading.Condition()
         self._running = 0
@@ -103,26 +184,13 @@ class NsqBatchExecutor:
         """Quantizer calls (dicts with the call's input "x", its state
         "st", its shaping control "ctl" and its keyword arguments "kw")
         as one batch of numpy arrays: (params dict, state dict), S lanes
-        each, unused lanes at harmless defaults."""
+        each, unused lanes at harmless defaults. The arrays are views of
+        the executor's staging buffer, valid until the next call."""
         from ..hostcodec.silk import noise_shape as ns
 
-        S = self.S
-        f32 = np.float32
-        P = dict(x=np.zeros((S, _L), f32), a=np.zeros((S, 2, 16), f32),
-                 b=np.zeros((S, _NB, 5), f32),
-                 ar_shp=np.zeros((S, _NB, _ORDER), f32),
-                 harm=np.zeros((S, _NB), f32), tilt=np.zeros((S, _NB), f32),
-                 lf_ma=np.zeros((S, _NB), f32), lf_ar=np.zeros((S, _NB), f32),
-                 gains=np.ones((S, _NB), f32),
-                 pitch_l=np.full((S, _NB), 64, np.int32),
-                 lam=np.zeros(S, f32), offset=np.zeros(S, f32),
-                 voiced=np.zeros(S, bool), seed=np.zeros(S, np.int32),
-                 ltp_scale=np.ones(S, f32), interp=np.zeros(S, bool))
-        st = dict(xq=np.zeros((S, _M), f32), shp=np.zeros((S, _M), f32),
-                  s_lpc=np.zeros((S, 16), f32),
-                  s_ar2=np.zeros((S, _ORDER), f32),
-                  s_lf_ar=np.zeros(S, f32), s_diff=np.zeros(S, f32),
-                  lag_prev=np.zeros(S, np.int32), prev_gain=np.ones(S, f32))
+        views = self._staging.host_arrays()
+        P = {name: views[name] for name, *_ in _PARAMS}
+        st = {name: views[name] for name, *_ in _STATE}
         for i, r in enumerate(reqs):
             kw, ctl, stn = r["kw"], r["ctl"], r["st"]
             P["x"][i] = r["x"]
@@ -158,31 +226,29 @@ class NsqBatchExecutor:
         return P, st
 
     def _dispatch(self, reqs):
-        P, st = self.pack_requests(reqs)
-        dev = self.device
-
-        def to_dev(arrays):
-            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
-
+        self.pack_requests(reqs)
         with record_function("nsq.h2d"):
-            params = silk_nsq.NsqParams(**to_dev(P))
-            state = to_dev(st)
+            arrays = self._staging.to_device()
+            params = silk_nsq.NsqParams(*(arrays[name]
+                                          for name, *_ in _PARAMS))
+            state = [arrays[name] for name, *_ in _STATE]
         self.dispatches += 1
         with record_function("nsq.quantize"):
             if self.use_del_dec:
                 pulses, seed_used, new_state = silk_nsq.nsq_del_dec_frame(
-                    params, silk_nsq.NsqDelDecState(**state), nb_subfr=_NB,
+                    params, silk_nsq.NsqDelDecState(*state), nb_subfr=_NB,
                     sub=_SUB, M=_M, n_states=4, warping=_WARPING)
+                outs = [pulses, seed_used, *new_state]
             else:
                 pulses, _, new_state = silk_nsq.nsq_frame(
-                    params, silk_nsq.NsqDevState(**state), nb_subfr=_NB,
+                    params, silk_nsq.NsqDevState(*state), nb_subfr=_NB,
                     sub=_SUB, M=_M)
-                seed_used = None
+                outs = [pulses, *new_state]
         with record_function("nsq.d2h"):
-            pulses = pulses.cpu().numpy()
-            if seed_used is not None:
-                seed_used = seed_used.cpu().numpy()
-            new = type(new_state)(*(v.cpu().numpy() for v in new_state))
+            host = self._staging.read_back(outs)
+        pulses = host[0]
+        seed_used = host[1] if self.use_del_dec else None
+        new = silk_nsq.NsqDevState(*host[2 if self.use_del_dec else 1:])
         for i, r in enumerate(reqs):
             self.lane_dispatches[r["task"]] += 1
             stn = r["st"]

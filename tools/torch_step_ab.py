@@ -1,15 +1,18 @@
-"""ms/step and kernel launches of the port's decode steps at S = 256 on
-one GPU, for one or more checkouts of this repository, in turns.
+"""ms/step and kernel launches of the port's decode steps, or the host
+time of one SILK quantizer dispatch by span, at S = 256 on one GPU, for
+one or more checkouts of this repository, in turns.
 
     python3 tools/torch_step_ab.py --trees DIR_A,DIR_B --order 0,1,1,0 \\
-        [--out FILE]
+        [--target steps|nsq] [--out FILE]
 
 Each entry of --order runs one child process in that checkout (its
 mousiki_tpu_torch and golden_streams.py), so that two versions of the
-package are compared on one card in one call (A, B, B, A). A child
-builds what the package builds at first use, then times three steps, the
-three taking turns, three runs each of 8 steps after warm-up (host wall
-time a step, the card synchronised at the end of a run):
+package are compared on one card in one call (A, B, B, A).
+
+--target steps (the default): a child builds what the package builds at
+first use, then times three steps, the three taking turns, three runs
+each of 8 steps after warm-up (host wall time a step, the card
+synchronised at the end of a run):
 
   celt         CeltStreamPipeline(256, 2, use_plan=True), golden stereo
                stream s % 3, loss-free;
@@ -19,8 +22,18 @@ time a step, the card synchronised at the end of a run):
                mono streams, loss-free;
 
 and counts the kernel launches of one profiled step of each (host-side
-launch calls under torch.profiler). Prints one JSON line a child and
-writes them all to FILE. Needs a GPU: a child fails without one.
+launch calls under torch.profiler).
+
+--target nsq: a child tiles the wide-band quantizer calls of a real
+encoder run (this checkout's nsq_cases.py, run on the child's package)
+over the 256 lanes of an NsqBatchExecutor and, for the delayed-decision
+and the single-state quantizer in turn, runs one dispatch to warm up,
+three timed (host wall time, the card synchronised by the read-back),
+then one under torch.profiler: the host time of the executor's spans
+(nsq.h2d, nsq.quantize, nsq.d2h) and the launches in each.
+
+Prints one JSON line a child and writes them all to FILE. Needs a GPU: a
+child fails without one.
 """
 
 from __future__ import annotations
@@ -34,12 +47,14 @@ import time
 
 S = 256
 STEPS, WARM, RUNS = 8, 3, 3
+NSQ_TIMED = 3
+NSQ_SPANS = ("nsq.h2d", "nsq.quantize", "nsq.d2h")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _child() -> dict:
-    sys.path.insert(0, os.getcwd())
+def _steps_child() -> dict:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -95,15 +110,67 @@ def _child() -> dict:
     return out
 
 
+def _span(ev) -> str:
+    """The executor span that holds a profiler event, or "outside"."""
+    while ev is not None:
+        if ev.name in NSQ_SPANS:
+            return ev.name
+        ev = ev.cpu_parent
+    return "outside"
+
+
+def _nsq_child() -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(1, HERE)
+    import nsq_cases
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    dev = torch.device("cuda", 0)
+    out = {"tree": os.getcwd(), "device": torch.cuda.get_device_name(dev)}
+    for del_dec in (True, False):
+        ex, reqs = nsq_cases.executor_requests(nsq_cases.harvest(del_dec), S,
+                                               del_dec, dev)
+        ex._dispatch(reqs)
+        wall = []
+        for _ in range(NSQ_TIMED):
+            t0 = time.perf_counter()
+            ex._dispatch(reqs)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ex._dispatch(reqs)
+        host_ms = {span: 0.0 for span in NSQ_SPANS}
+        launches = {span: 0 for span in (*NSQ_SPANS, "outside")}
+        cpu = torch.autograd.DeviceType.CPU
+        for ev in prof.events():
+            if ev.device_type != cpu:
+                continue
+            if ev.name in NSQ_SPANS:
+                host_ms[ev.name] += ev.cpu_time_total / 1e3
+            elif ev.name in LAUNCH_CALLS:
+                launches[_span(ev.cpu_parent)] += 1
+        out["del_dec" if del_dec else "single"] = {
+            "dispatch_ms": wall, "dispatch_ms_median": float(np.median(wall)),
+            "host_ms_by_span": host_ms, "launches_by_span": launches}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--target", choices=("steps", "nsq"), default="steps",
+                    help="the decode steps or one quantizer dispatch")
     ap.add_argument("--trees", help="comma-separated checkouts")
     ap.add_argument("--order", help="comma-separated indices into --trees")
     ap.add_argument("--out", help="file for the JSON lines")
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(_child()), flush=True)
+        sys.path.insert(0, os.getcwd())
+        child = _nsq_child if args.target == "nsq" else _steps_child
+        print(json.dumps(child()), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
     order = [int(i) for i in (args.order or ",".join(
@@ -115,8 +182,8 @@ def main() -> int:
     lines = []
     for i in order:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child"], cwd=trees[i], capture_output=True,
-                             text=True)
+                              "--child", "--target", args.target],
+                             cwd=trees[i], capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stdout + res.stderr)
             return res.returncode
