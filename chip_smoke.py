@@ -19,8 +19,9 @@ thing if any module of mousiki_tpu is loaded):
      (csrc/pvq_leaves.cu), the band assembly kernel
      (csrc/band_assembly.cu), the comb filter kernel
      (csrc/comb_filter.cu), the concealment's row kernel
-     (csrc/plc_rows.cu) and the two SILK quantizer kernels
-     (csrc/silk_nsq.cu), each source with its build time;
+     (csrc/plc_rows.cu), the two SILK quantizer kernels
+     (csrc/silk_nsq.cu) and the device SILK synthesis kernel
+     (csrc/silk_synthesis.cu), each source with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -115,14 +116,14 @@ thing if any module of mousiki_tpu is loaded):
      1e-3 of each row's peak, the rows of streams not lost exactly 0.0
      with the carried LPC; celt_plc_freq through the kernel within 1e-3 *
      max|freq| of its plain route on the lost streams; the worst errors
-     and the rows whose float32 LPC bits differ printed; then the
+     and the rows whose float32 LPC or ext bits differ printed; then the
      kernel's device time (torch.profiler) at every (S, C) a lossy path
      runs it (256 and 1024, stereo and mono, a mesh shard's) with ~10% of
      the streams lost, at (256, 2) with all lost, and of one row alone
-     (the chain), each beside its bound (the bytes it must move: planes,
-     the lost rows' history, carried LPCs, outputs, over HBM bandwidth,
-     against its operations over the FP64 peak) and the plain version's
-     device time;
+     (the chain, and its ns a synthesis step), each beside its bound (the
+     bytes it must move: planes, the lost rows' history, carried LPCs,
+     outputs, over HBM bandwidth, against its operations over the FP64
+     peak) and the plain version's device time;
  3e. the SILK quantizer kernels (ops/silk_nsq.nsq_frame and
      nsq_del_dec_frame, one launch a quantizer call) against their plain
      versions on the card, at S = 256 on the quantizer calls of a real
@@ -138,6 +139,23 @@ thing if any module of mousiki_tpu is loaded):
      float operations over the fp32 peak) and share, the time of one
      sample of the chain, and the plain version's device time and wall
      time of one call;
+ 3f. the device SILK synthesis kernel (ops/silk_synthesis.
+     silk_synthesis_step: gain scale, re-whitening, LTP and LPC of a
+     whole frame, one launch a step) against its plain version on the
+     card, the output and both state planes within 1e-4 of each frame's
+     peak: every call of 12 frames of OpusStreamPipeline(256, channels=1,
+     silk_synthesis="device") on the mono mix (the lane's strided views,
+     on the same state), of SilkStreamPipeline(256, synthesis="device")
+     at 16 and 8 kHz on the golden SILK streams (stream s starting s % 12
+     frames in; the plain version carries its own state), and 12 carried
+     frames of silk_synthesis_cases.py's seeded 12 kHz streams (voiced and
+     unvoiced, interpolation on and off, lags 18 to 216 and per subframe,
+     chunks that straddle subframes); then the kernel's device time
+     (torch.profiler) on each, and of one stream alone (the chain), each
+     beside its bound (every parameter and state element read once, the
+     outputs written once, over HBM bandwidth, against the float
+     operations these streams need over the fp32 peak), the plain
+     version's device time and a call's wall time;
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
@@ -173,7 +191,8 @@ thing if any module of mousiki_tpu is loaded):
   8. device SILK: SilkStreamPipeline(256, synthesis="device") against
      synthesis="host" on the SILK 16 kHz payloads, SNR above 45 dB; and
      the device-SILK lane of the mixed decoder within 5e-3 of its host
-     lane;
+     lane; the SILK synthesis kernel launched once a step on both (counts
+     reset just before each);
   9. mixed loss: ~10% seeded loss on the mono mix, the first 8 streams
      against the port run on the CPU (5e-3 / 2e-4 as in phase 5), and
      the batch check of phase 5 (16 streams with 15% loss from frame 1,
@@ -232,7 +251,11 @@ thing if any module of mousiki_tpu is loaded):
      S = 256 through step() and through encode_stream() with chunks of 8
      (24 frames after 8 of warm-up, three runs in turn); and profiled
      steps (kernel launches, the leaf kernels' among them, device busy
-     time, host time by stage) of both decoders, the device-SILK lane,
+     time, host time by stage) of both decoders, the device-SILK lane
+     (also timed with the mixed decoder, in turns) and
+     SilkStreamPipeline(256, synthesis="device") (each one
+     silk_synthesis launch, none in spans silk.ltp and silk.lpc; the
+     lane's step within 700 launches),
      one encode step and one executor dispatch of each quantizer at
      S = 256 (its nsq.h2d / nsq.quantize / nsq.d2h spans; one kernel
      launch, at most 5 launches in nsq.quantize); the CELT step at
@@ -360,9 +383,9 @@ the concealment's rows, one row for each lossy path and width, its
 launches beside phase 3d's times at that width, with chain_ms the time
 of one row alone; for the quantizers, one row for each path that runs
 them (phases 12, 13 and 13b), its launches beside phase 3e's times at
-S = 256); the
-last
-line is {"ok": true, "device": {...}}. The "run" line holds the wall
+S = 256; for the SILK synthesis, one row for each device-SILK path of
+phase 8, its launches beside phase 3f's times on that path's calls);
+the last line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
 the profiled steps to DIR/profile_*.txt.
@@ -392,6 +415,7 @@ from golden_streams import (MIX_GOLDEN_FROM, frame_batch, golden_pcm,
 from comb_cases import comb_calls, comb_rows
 import nsq_cases
 import plc_cases
+import silk_synthesis_cases
 from leaf_cases import outside_leaves, synthetic_leaves, synthetic_plan
 from mousiki_tpu_torch._device import operator64, require_cuda
 from mousiki_tpu_torch.ops import _build
@@ -408,6 +432,8 @@ from mousiki_tpu_torch.models import dred as rdovae
 from mousiki_tpu_torch.ops import celt_lockstep_emit as lockstep_emit
 from mousiki_tpu_torch.ops import celt_lockstep_top as lockstep
 from mousiki_tpu_torch.ops import encode_front, plc, silk_nsq, synthesis
+from mousiki_tpu_torch.ops import silk_synthesis as silk_syn
+import mousiki_tpu_torch.pipeline as pipeline_mod
 from mousiki_tpu_torch.hostcodec.testing import oracle
 from mousiki_tpu_torch.celt.host_native import NativeCeltHostBatch
 from mousiki_tpu_torch.celt.plan import TIERS
@@ -519,7 +545,9 @@ COMB_ULPS = 4
 # (a tenth of the streams lost) within 600 (6,431 a CELT step before the
 # concealment's row work ran as one kernel)
 MAX_STEP_LAUNCHES = {"S256": 700, "mixed_S256": 700, "S256_lossy": 600,
-                     "mixed_S256_lossy": 600}
+                     "mixed_S256_lossy": 600,
+                     # 2,236 before the SILK synthesis ran as one kernel
+                     "mixed_S256_device_silk": 700}
 PATH_LAUNCHES: dict = {}        # path -> {kernel: launches in its run}
 # lockstep path -> {kernel: times of its first step's own call(s)}
 OWN_STEP_ROWS: dict = {}
@@ -559,6 +587,20 @@ NSQ_WIDTHS = {"nsq_frame": {S_MAIN}, "nsq_del_dec": {S_MAIN, 8, 1, 2}}
 NSQ_LAUNCHES: dict = {name: {} for name in NSQ_KERNELS}
 # at most this many launches in a profiled dispatch's nsq.quantize span
 NSQ_MAX_QUANTIZE_LAUNCHES = 5
+# the device SILK synthesis kernel: the reference's step whose compiled
+# loops it replaces, the kernel's symbol, its source; against its plain
+# version on the card within this of a frame's peak output, the output
+# and both state planes (tests/test_torch_silk_synthesis.py's bar: the
+# plain version sums in CUDA's order there, and the LPC filter carries
+# the last-bit differences), over 12 frames
+SYN_KERNEL = ("mousiki_tpu/ops/silk_synthesis_jax.py:71",
+              "silk_synthesis_kernel",
+              "mousiki_tpu_torch/csrc/silk_synthesis.cu")
+SYN_TOL = 1e-4
+SYN_FRAMES = 12
+# path of phase 8 -> (the kernel's launches in its run, the row of phase
+# 3f that times its calls)
+SYN_LAUNCHES: dict = {}
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -619,7 +661,7 @@ def _timed(fn):
 
 
 def phase_build():
-    """g++ for the three host libraries and nvcc for the six kernel
+    """g++ for the three host libraries and nvcc for the seven kernel
     sources, started together."""
     with ThreadPoolExecutor(max_workers=8) as pool:
         hosts = {name: pool.submit(_timed, partial(_build.build_host, name))
@@ -630,6 +672,7 @@ def phase_build():
         comb = pool.submit(_timed, synthesis.build_comb_kernel)
         rows = pool.submit(_timed, plc.build_plc_kernel)
         nsq = pool.submit(_timed, silk_nsq.build_kernel)
+        syn = pool.submit(_timed, silk_syn.build_kernel)
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
             leaf_kernels="csrc/pvq_leaves.cu",
@@ -640,6 +683,8 @@ def phase_build():
             comb_filter_seconds=comb.result(),
             plc_rows="csrc/plc_rows.cu", plc_rows_seconds=rows.result(),
             silk_nsq="csrc/silk_nsq.cu", silk_nsq_seconds=nsq.result(),
+            silk_synthesis="csrc/silk_synthesis.cu",
+            silk_synthesis_seconds=syn.result(),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
 
@@ -800,20 +845,22 @@ def _reset_launches() -> None:
     synthesis.reset_launches()
     plc.reset_launches()
     silk_nsq.reset_launches()
+    silk_syn.reset_launches()
 
 
 def _kernel_counts() -> dict:
     """The launch counts of the kernels besides the de-emphasis: those a
     decode step runs (the leaf stage's, the walk's, the band assembly's,
-    the comb filter's and, on a lossy step, the concealment's rows') and
-    the SILK quantizers'."""
+    the comb filter's and, on a lossy step, the concealment's rows), the
+    SILK quantizers' and the device SILK synthesis'."""
     return {"pvq_leaf_stage": pvq.leaf_stage_launches,
             "cwrs_walk": pvq.cwrs_walk_launches,
             "band_assembly": band_asm.band_assembly_launches,
             "comb_filter": synthesis.comb_filter_launches,
             "plc_rows": plc.plc_rows_launches,
             "nsq_frame": silk_nsq.nsq_frame_launches,
-            "nsq_del_dec": silk_nsq.nsq_del_dec_launches}
+            "nsq_del_dec": silk_nsq.nsq_del_dec_launches,
+            "silk_synthesis": silk_syn.silk_synthesis_launches}
 
 
 def _path_launches(path: str, steps: int, got=None, after_each=None,
@@ -832,8 +879,9 @@ def _path_launches(path: str, steps: int, got=None, after_each=None,
     _guard_plc, step by step."""
     got = dict(_kernel_counts() if got is None else got)
     got.pop("plc_rows", None)
-    for name in NSQ_KERNELS:
-        check(got.pop(name, 0) == 0, f"{path}: {name} launched in a decode")
+    for name in (*NSQ_KERNELS, "silk_synthesis"):
+        check(got.pop(name, 0) == 0, f"{path}: {name} launched on a path "
+              "that does not run it")
     if not executor:
         got = {"comb_filter": got["comb_filter"]}
     elif not lockstep:
@@ -1801,7 +1849,8 @@ def _plc_check(label, call, well_conditioned: bool):
     PLC_LPC_TOL (real histories), their ext within PLC_EXT_TOL of each
     row's peak; the other rows ext 0.0 and the carried LPC. Returns [rows
     lost, the largest ext error, in units of the row's peak, the largest
-    LPC error, the rows whose LPC bits differ]."""
+    LPC error, the rows whose LPC bits differ, the rows whose ext bits
+    differ]."""
     consts, args, n_ext = _rows_args(call)
     hist, first, lost, _, _, lpc_prev = args
     lpc, ext = plc.plc_rows(consts, *args, n_ext=n_ext)
@@ -1832,8 +1881,9 @@ def _plc_check(label, call, well_conditioned: bool):
     rel = (diff / peak[lost].clamp(min=1e-30)).max().item() if lost.any() \
         else 0.0
     flips = int((lpc != want_lpc).any(dim=-1)[lost].sum())
+    ext_flips = int((ext != want_ext).any(dim=-1)[lost].sum())
     return [int(lost.sum()) * hist.shape[1], diff.max().item()
-            if diff.numel() else 0.0, rel, lpc_err, flips]
+            if diff.numel() else 0.0, rel, lpc_err, flips, ext_flips]
 
 
 def _freq_check(label, call):
@@ -1894,6 +1944,7 @@ def _plc_times(label, call):
     _, want = plain()
     row = dict(shape=list(hist.shape[:2]) + [n_ext],
                streams_lost=int(lost.sum()), ms=ms,
+               ns_a_synthesis_step=ms * 1e6 / n_ext,
                plain_ms=_device_ms(plain, reps=2, device_only=True),
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1956,6 +2007,7 @@ def phase_plc_kernel(dev, streams, mono, widths):
         worst_ext_err_of_peak=max(v[2] for v in checked.values()),
         worst_lpc_err=max(v[3] for v in checked.values()),
         lpc_rows_with_other_bits=sum(v[4] for v in checked.values()),
+        ext_rows_with_other_bits=sum(v[5] for v in checked.values()),
         worst_freq_err_of_max=freq_err, ext_bar=PLC_EXT_TOL,
         lpc_bar=PLC_LPC_TOL)
     base = {2: celt_rows[0], 1: mono_rows[0]}
@@ -2130,6 +2182,186 @@ def phase_nsq_kernels(dev, widths):
         for W, row in sorted(rows.items()):
             say(f"nsq_kernel_{name}_S{W}", **row)
         table[name] = rows
+    return table
+
+
+# ------------------------------------- the device SILK synthesis (3f)
+
+def _strided_copy(t):
+    """A copy of t with its strides (a view of a wider plane stays one)."""
+    if t is None:
+        return None
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def _syn_err(label, got, want) -> float:
+    """The largest error of the kernel's output and state planes against
+    the plain version's, in units of the frame's peak output; fails past
+    SYN_TOL or on a value that is not finite."""
+    got, want = (got[0], *got[1]), (want[0], *want[1])
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"{label}: SILK synthesis output not finite")
+    peak = max(float(want[0].abs().max()), 1e-30)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want)) / peak
+    check(err <= SYN_TOL, f"{label}: the SILK kernel {err} of the peak "
+          f"from its plain version (bar {SYN_TOL})")
+    return err
+
+
+@contextlib.contextmanager
+def _held_synthesis(label: str, carry: bool):
+    """Inside, every silk_synthesis_step of the pipelines runs the kernel
+    (the path's own call) and is held to the plain version on the same
+    parameters: on the same state (carry=False: the mixed lane, whose
+    state is masked afterwards), or on the plain version's own state,
+    carried from the first call's (carry=True: SilkStreamPipeline, whose
+    state is the step's). Yields {"errs": [each call's error of its
+    peak], "first": the first call's arguments, strides kept}."""
+    fn = pipeline_mod.silk_synthesis_step
+    seen = {"errs": [], "first": None, "plain_state": None}
+
+    def held(params, state, **kw):
+        if seen["first"] is None:
+            seen["first"] = (
+                silk_syn.SilkFrameParams(*map(_strided_copy, params)),
+                silk_syn.SilkStreamState(*map(_strided_copy, state)), kw)
+            seen["plain_state"] = state
+        base = seen["plain_state"] if carry else state
+        want = silk_syn.silk_synthesis_step_reference(params, base, **kw)
+        before = silk_syn.silk_synthesis_launches
+        got = fn(params, state, **kw)
+        check(silk_syn.silk_synthesis_launches == before + 1,
+              f"{label}: not one kernel launch a step")
+        seen["errs"].append(_syn_err(f"{label} call {len(seen['errs'])}",
+                                     got, want))
+        seen["plain_state"] = want[1]
+        return got
+
+    pipeline_mod.silk_synthesis_step = held
+    try:
+        yield seen
+    finally:
+        pipeline_mod.silk_synthesis_step = fn
+
+
+def syn_work(params, state, subfr_len: int) -> tuple[int, int]:
+    """(bytes, operations) one silk_synthesis_step call needs on these
+    inputs: every parameter and state element read once, the output and
+    new state written once; operations a stream: the gain scale (1 a
+    sample), the history's re-whitening and ltp_scale (33 a sample), the
+    LTP where the stream is voiced (5 products, 5 adds a sample; 1 add
+    where it is not), the LPC (16 products, 16 adds a sample), and an
+    interpolated frame's second re-whitening (32 a sample of [history |
+    first half])."""
+    S, L = params.exc.shape
+    H = state.out_hist.shape[1]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*params, *state) if t is not None)
+    nbytes += 4 * S * (L + H + silk_syn.MAX_D)
+    voiced = int(params.voiced.sum())
+    interp = 0 if params.interp is None else int(params.interp.sum())
+    half = (L // 2 // subfr_len) * subfr_len
+    ops = (S * (L + 33 * H + 32 * L) + voiced * 10 * L + (S - voiced) * L
+           + interp * 32 * (H + half))
+    return nbytes, ops
+
+
+def _syn_times(label, params, state, kw, err: float) -> dict:
+    """The kernel's device time on one call (torch.profiler), its bound,
+    the plain version's device time; `err` the worst error of the
+    calls held."""
+    run = partial(silk_syn.silk_synthesis_step, params, state, **kw)
+    plain = partial(silk_syn.silk_synthesis_step_reference, params, state,
+                    **kw)
+    nbytes, ops = syn_work(params, state, kw["subfr_len"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    ms = _device_ms(run, match=SYN_KERNEL[1])
+    out, _ = run()
+    want, _ = plain()
+    S, L = params.exc.shape
+    row = dict(shape=[S, L], ms=ms,
+               plain_ms=_device_ms(plain, reps=2, device_only=True),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, operations=ops,
+               chain_us_a_sample=ms * 1e3 / L,
+               max_abs_err=float((out - want).abs().max()),
+               worst_err_of_peak=err, voiced=int(params.voiced.sum()),
+               call_wall_ms=_wall_ms(run))
+    row["bound_share"] = row["bound_ms"] / ms
+    say(f"silk_synthesis_times_{label}", **row)
+    return row
+
+
+def phase_silk_synthesis_kernel(dev, mono):
+    """The device SILK synthesis kernel (ops/silk_synthesis.
+    silk_synthesis_step) against its plain version on the card: every
+    call of 12 frames of OpusStreamPipeline(256, channels=1,
+    silk_synthesis="device") on the mono mix (the lane's own strided
+    views), of SilkStreamPipeline(256, synthesis="device") at 16 and 8 kHz
+    on the golden SILK streams (stream s starting s % 12 frames in, the
+    plain version carrying its own state), and 12 carried frames of
+    silk_synthesis_cases.py's seeded 12 kHz streams; then the kernel's
+    time at each, and of one stream alone (the chain), each beside its
+    bound and the plain version's device time. Returns {label: row}."""
+    S = S_MAIN
+    mixed = partial(frame_batch, mono, S, packets=True)
+
+    def silk(k, f):
+        return [mono[k].payloads[(f + s) % SYN_FRAMES] for s in range(S)]
+
+    runs = {
+        "mixed_lane": (lambda: OpusStreamPipeline(
+            S, channels=1, silk_synthesis="device", device=dev), mixed,
+            False),
+        "silk16": (lambda: SilkStreamPipeline(
+            S, 16, synthesis="device", device=dev), partial(silk, 1), True),
+        "silk8": (lambda: SilkStreamPipeline(
+            S, 8, synthesis="device", device=dev), partial(silk, 2), True),
+    }
+    table, held = {}, {}
+    for label, (make, batch, carry) in runs.items():
+        pipe = make()
+        with _held_synthesis(label, carry) as seen:
+            for f in range(SYN_FRAMES):
+                pipe.step(batch(f))
+        torch.cuda.synchronize()
+        check(len(seen["errs"]) == SYN_FRAMES,
+              f"{label}: {len(seen['errs'])} synthesis calls in "
+              f"{SYN_FRAMES} steps")
+        held[label] = max(seen["errs"])
+        params, state, kw = seen["first"]
+        table[label] = _syn_times(label, params, state, kw, held[label])
+    # the seeded 12 kHz streams, kernel and plain version each carrying
+    # its own state
+    khz = 12
+    kw = silk_synthesis_cases.step_kwargs(khz)
+    frames = silk_synthesis_cases.frames(np.random.default_rng(19), khz,
+                                         SYN_FRAMES, S)
+    got_state = want_state = silk_syn.init_silk_state(S, khz, dev)
+    errs = []
+    for f, frame in enumerate(frames):
+        params = silk_synthesis_cases.params(frame, dev)
+        if f == 0:
+            first = (params, got_state)
+        got = silk_syn.silk_synthesis_step(params, got_state, **kw)
+        want = silk_syn.silk_synthesis_step_reference(params, want_state,
+                                                      **kw)
+        errs.append(_syn_err(f"seeded12 frame {f}", got, want))
+        got_state, want_state = got[1], want[1]
+    held["seeded12"] = max(errs)
+    table["seeded12"] = _syn_times("seeded12", *first, kw, held["seeded12"])
+    # one stream alone: a voiced 16 kHz stream with interpolated halves
+    frame = silk_synthesis_cases.frames(np.random.default_rng(20), 16, 1)[0]
+    one = silk_synthesis_cases.params(
+        {k: v[1:2] for k, v in frame.items()}, dev)
+    table["chain"] = _syn_times("chain_S1", one,
+                                silk_syn.init_silk_state(1, 16, dev),
+                                silk_synthesis_cases.step_kwargs(16), 0.0)
+    say("silk_synthesis_kernel", worst_err_of_peak=held, bar=SYN_TOL,
+        frames=SYN_FRAMES)
     return table
 
 
@@ -2339,9 +2571,12 @@ def phase_device_silk(dev, mono):
     host = SilkStreamPipeline(S, synthesis="host", device=dev)
     device = SilkStreamPipeline(S, synthesis="device", device=dev)
     a, b = [], []
+    _reset_launches()
     for f in range(F):
         a.append(host.step([payloads[f]] * S).cpu().numpy())
         b.append(device.step([payloads[f]] * S).cpu().numpy())
+    SYN_LAUNCHES["silk_device"] = (silk_syn.silk_synthesis_launches,
+                                   "silk16")
     a, b = np.concatenate(a, axis=1), np.concatenate(b, axis=1)
     check(bool(np.isfinite(b).all()), "non-finite device SILK pcm")
     snr = 10 * np.log10((a ** 2).mean(axis=1)
@@ -2350,15 +2585,22 @@ def phase_device_silk(dev, mono):
     lane = OpusStreamPipeline(S, silk_synthesis="device", device=dev)
     plain = OpusStreamPipeline(S, device=dev)
     worst = 0.0
+    _reset_launches()
     for f in range(F):
         batch = frame_batch(mono, S, f, packets=True)
         got = lane.step(batch)
         check(5 in set(int(m) for m in lane.last_modes),
               "no stream rode the device-SILK lane")
         worst = max(worst, float((got - plain.step(batch)).abs().max()))
+    SYN_LAUNCHES["mixed_device_silk"] = (silk_syn.silk_synthesis_launches,
+                                         "mixed_lane")
     check(worst < 5e-3, f"device-SILK lane {worst} from the host lane")
+    for path, (n, _) in SYN_LAUNCHES.items():
+        check(n == F, f"{path}: {n} SILK synthesis launches in {F} steps: "
+              "one a step expected")
     say("device_silk", streams=S, frames=F, min_snr_db=float(snr.min()),
-        lane_worst_abs_err_vs_host_lane=worst)
+        lane_worst_abs_err_vs_host_lane=worst,
+        silk_synthesis_launches={k: v[0] for k, v in SYN_LAUNCHES.items()})
 
 
 def _time_stream(pipe, batch_fn, warm=3, steps=12, **kwargs):
@@ -2457,6 +2699,8 @@ def phase_timing(dev, streams, mono):
         modes = {f"S{S}": (pipe, celt_batch, {}),
                  f"mixed_S{S}": (mixed, mixed_batch, {})}
         if S == S_MAIN:
+            lane = OpusStreamPipeline(S, silk_synthesis="device", device=dev)
+            modes["mixed_S256_device_silk"] = (lane, mixed_batch, {})
             overlapped = CeltStreamPipeline(S, use_plan=True, device=dev)
             overlapped.overlap_host = True
             modes["S256_overlap_host"] = (overlapped, celt_batch, {})
@@ -2496,11 +2740,23 @@ def phase_timing(dev, streams, mono):
                       and prof["launches"] <= MAX_STEP_LAUNCHES[name],
                       f"profiled {name} step: {prof['launches']} launches, "
                       f"plc_rows {prof['kernel_launches']['plc_rows']}")
-            lane = OpusStreamPipeline(S, silk_synthesis="device", device=dev)
+            prof = _profile("mixed_S256_device_silk",
+                            lambda f: lane.step(mixed_batch(f)))
+            silk = SilkStreamPipeline(S, synthesis="device", device=dev)
+            payloads = mono[1].payloads
             for f in range(4):
-                lane.step(mixed_batch(f))
-            _profile("mixed_S256_device_silk",
-                     lambda f: lane.step(mixed_batch(f)))
+                silk.step([payloads[f]] * S)
+            silk_prof = _profile("silk_S256_device",
+                                 lambda f: silk.step([payloads[f]] * S))
+            for name, p in (("mixed_S256_device_silk", prof),
+                            ("silk_S256_device", silk_prof)):
+                spans = p["launches_by_span"]
+                check(p["kernel_launches"]["silk_synthesis"] == 1
+                      and not spans.get("silk.ltp")
+                      and not spans.get("silk.lpc"),
+                      f"profiled {name} step: silk_synthesis launched "
+                      f"{p['kernel_launches']['silk_synthesis']} times, "
+                      f"spans {spans}")
 
 
 # ------------------------------------------------------------ encode side
@@ -3934,6 +4190,8 @@ def main() -> int:
         (S_MAIN, 2), (S_WIDE, 2), (S_MAIN, 1), (S_WIDE, 1), (shard, 2),
         (shard, 1)})
     nsq_table = _phase("nsq_kernels", phase_nsq_kernels, dev, NSQ_WIDTHS)
+    syn_table = _phase("silk_synthesis_kernel", phase_silk_synthesis_kernel,
+                       dev, mono)
     _record_frames()
     _guard_plc()
     n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
@@ -4062,6 +4320,18 @@ def main() -> int:
         "library_ms": None}
         for name, paths in NSQ_LAUNCHES.items()
         for (path, S), n in sorted(paths.items())]
+    # one row for each path of phase 8 that ran the SILK synthesis
+    # kernel: its launches (one a step) beside phase 3f's times on that
+    # path's own calls at S = 256
+    kernels["kernels"] += [{
+        "name": "silk_synthesis", "route": "cuda", "source": SYN_KERNEL[2],
+        "replaces": SYN_KERNEL[0], "path": path, "launches": n,
+        **{key: syn_table[label][key]
+           for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "chain_us_a_sample")},
+        # no PyTorch call computes an LTP and an order-16 IIR
+        "library_ms": None}
+        for path, (n, label) in SYN_LAUNCHES.items()]
     say("plc_launches", **{f"{path}_S{S}_C{C}": v for (path, S, C), v
                            in sorted(PLC_LAUNCHES.items())})
     # the frame sizes the paths decoded, all among those 3c checked

@@ -23,12 +23,18 @@
 // (a warp a lag, float64 sums in a fixed order), the residual (a thread a
 // sample), the energies (block sums in a fixed order) and the excitation
 // (a thread a sample). The Levinson recursion runs on one warp (lane j
-// holds a[j]) and so does the synthesis: lane j holds weight j and its
-// window sample, the 24 float64 products are summed by a butterfly of
-// shuffles (additions commute, so every lane ends with the same sum),
-// every lane adds the excitation, clamps and rounds, and the window moves
-// down a lane. Rows share no arithmetic, so a stream's values do not
-// depend on the batch.
+// holds a[j]). The synthesis runs on one thread (plc_synthesis_chain): the
+// 24 window samples (as float64, each converted once) and the 24 float64
+// weights stay in registers, the window a ring that the loop, unrolled by
+// 24, indexes at compile time, so a step's chain is the newest sample's
+// product, the adds of the sum and the excitation's add, clamp and
+// rounding, with no shuffle; with one thread issuing, a step costs about
+// its 40 float64 instructions. The 24 products are summed in the tree of
+// the warp butterfly that ran the synthesis before (pairs j and j + 16,
+// then + 8, + 4, + 2, + 1; the products are exact, so the first level runs
+// as fused multiply-adds that round once, as the butterfly's adds did), so
+// the outputs are the bits it gave. Rows share no arithmetic, so a
+// stream's values do not depend on the batch.
 //
 // Arithmetic is the plain version's, one rounding an operation (the
 // functions of plc_rows.h); the float64 sums (autocorrelation, Levinson
@@ -163,20 +169,8 @@ plc_rows_kernel(const float* __restrict__ hist, int64_t hist_s,
   for (int n = t; n < n_ext; n += kThreads)
     eext[n] = PLC_FMUL(w[PLC_HIST - p + n % p], plc_atten(f, logd, n / p));
   __syncthreads();
-  if (warp == 0) {
-    // lane j: weight lpc[23 - j] and window sample j (oldest first)
-    const bool on = lane < PLC_ORDER;
-    const double wt =
-        on ? static_cast<double>(lpc[PLC_ORDER - 1 - lane]) : 0.0;
-    float b = on ? x[PLC_HIST - PLC_ORDER + lane] : 0.0f;
-    for (int n = 0; n < n_ext; ++n) {
-      const double sum = warp_sum(PLC_DMUL(static_cast<double>(b), wt));
-      const float v = plc_synth(sum, eext[n]);
-      const float next = __shfl_down_sync(kFull, b, 1);
-      b = lane == PLC_ORDER - 1 ? v : next;
-      if (lane == 0) y[n] = v;
-    }
-  }
+  if (t == 0)
+    plc_synthesis_chain(x + PLC_HIST - PLC_ORDER, lpc, eext, y, n_ext);
   __syncthreads();
   for (int i = t; i < n_ext; i += kThreads) out[i] = y[i];
 }

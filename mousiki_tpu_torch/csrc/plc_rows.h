@@ -1,7 +1,8 @@
 // The row arithmetic of the CELT concealment (ops/plc.py), the parts that do
 // not depend on how a kernel lays out its threads: one Levinson iteration
 // given its float64 dot, one residual sample, the decay and attenuation of
-// the excitation, one LPC synthesis step given its float64 sum.
+// the excitation, one LPC synthesis step given its float64 sum, and the
+// whole synthesis chain of a row on one thread.
 //
 // Each function rounds where the plain version (ops/plc.plc_rows_reference,
 // eager PyTorch) rounds, and nowhere else: every float32 and float64 add,
@@ -33,6 +34,7 @@
 #define PLC_DMUL(a, b) __dmul_rn(a, b)
 #define PLC_DADD(a, b) __dadd_rn(a, b)
 #define PLC_DSUB(a, b) __dsub_rn(a, b)
+#define PLC_DFMA(a, b, c) __fma_rn(a, b, c)
 #else
 #define PLC_FMUL(a, b) ((a) * (b))
 #define PLC_FADD(a, b) ((a) + (b))
@@ -42,6 +44,7 @@
 #define PLC_DMUL(a, b) ((a) * (b))
 #define PLC_DADD(a, b) ((a) + (b))
 #define PLC_DSUB(a, b) ((a) - (b))
+#define PLC_DFMA(a, b, c) fma(a, b, c)
 #endif
 
 // CELT_LPC_ORDER, and the history the fit and the residual read
@@ -120,6 +123,61 @@ PLC_HD float plc_synth(double sum, float exc) {
   return static_cast<float>(v);
 }
 
+// The sum of a synthesis step's 24 float64 products w[j] * wt[j] in the tree
+// order of a warp butterfly over 32 lanes whose lanes 24-31 hold 0.0:
+// pairs j and j + 16, then j + 8, + 4, + 2 and + 1. The window w and the
+// weights wt are float32 values held as float64, so each product is exact
+// (48 significant bits at most) and the first level's fma(w[j], wt[j],
+// p[j + 16]) (or + 0.0) rounds once, as the butterfly's add of the two
+// products did.
+PLC_HD double plc_tree_sum(const double* w, const double* wt) {
+  // each level a loop of a constant count, so that every index is fixed
+  // at compile time and q stays in registers
+  double q[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    q[i] = PLC_DFMA(w[i], wt[i],
+                    i + 16 < PLC_ORDER ? PLC_DMUL(w[i + 16], wt[i + 16])
+                                       : 0.0);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) q[i] = PLC_DADD(q[i], q[i + 8]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = PLC_DADD(q[i], q[i + 4]);
+  q[0] = PLC_DADD(q[0], q[2]);
+  q[1] = PLC_DADD(q[1], q[3]);
+  return PLC_DADD(q[0], q[1]);
+}
+
+// the LPC synthesis of a row on one thread: n_ext outputs from the row's
+// last PLC_ORDER samples `tail` (oldest first), y[n] = plc_synth(sum_j
+// lpc[j] y[n - 1 - j], exc[n]). The window and the weights stay in
+// registers as float64 (each sample converted once); the window is a ring
+// that the loop, unrolled by PLC_ORDER, indexes at compile time: at step k
+// of a round the oldest sample is w[k].
+PLC_HD void plc_synthesis_chain(const float* tail, const float* lpc,
+                                const float* exc, float* y, int n_ext) {
+  double wt[PLC_ORDER];   // the weight of window sample j, oldest first
+  double w[PLC_ORDER];
+#pragma unroll
+  for (int j = 0; j < PLC_ORDER; ++j) {
+    wt[j] = static_cast<double>(lpc[PLC_ORDER - 1 - j]);
+    w[j] = static_cast<double>(tail[j]);
+  }
+  for (int n0 = 0; n0 < n_ext; n0 += PLC_ORDER) {
+#pragma unroll
+    for (int k = 0; k < PLC_ORDER; ++k) {
+      if (n0 + k < n_ext) {
+        double win[PLC_ORDER];
+#pragma unroll
+        for (int j = 0; j < PLC_ORDER; ++j) win[j] = w[(k + j) % PLC_ORDER];
+        const float v = plc_synth(plc_tree_sum(win, wt), exc[n0 + k]);
+        w[k] = static_cast<double>(v);
+        y[n0 + k] = v;
+      }
+    }
+  }
+}
+
 #if defined(PLC_ROWS_HOST_API)
 // Array entry points of the host build (ctypes), element by element.
 extern "C" {
@@ -168,6 +226,14 @@ void plc_host_atten(const float* fade, const float* logd, const int* period,
 
 void plc_host_synth(const double* sum, const float* exc, float* out, long n) {
   for (long i = 0; i < n; ++i) out[i] = plc_synth(sum[i], exc[i]);
+}
+
+// tail, lpc: (rows, PLC_ORDER); exc, out: (rows, n_ext)
+void plc_host_synthesis(const float* tail, const float* lpc, const float* exc,
+                        float* out, long n_rows, int n_ext) {
+  for (long r = 0; r < n_rows; ++r)
+    plc_synthesis_chain(tail + r * PLC_ORDER, lpc + r * PLC_ORDER,
+                        exc + r * n_ext, out + r * n_ext, n_ext);
 }
 
 }  // extern "C"

@@ -16,23 +16,37 @@ cancel):
     sample, all streams wide, with an (S, 16) carry.
 
 The reference compiles both loops into one program (`fori_loop`,
-`lax.scan`); in eager PyTorch they are Python loops, 40 chunk steps and
-320 sample steps a 20 ms frame at 16 kHz, each a handful of small
-launches. PCM parity with the bit-exact host decoder is float-level.
+`lax.scan`). Here the step is `silk_synthesis_step`: one launch of a
+hand-written CUDA kernel (csrc/silk_synthesis.cu) for CUDA tensors, its
+plain version `silk_synthesis_step_reference` for CPU tensors, where the
+loops are Python loops, 40 chunk steps and 320 sample steps a 20 ms frame
+at 16 kHz, each a handful of small launches. PCM parity with the
+bit-exact host decoder is float-level.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 from torch.profiler import record_function
 
 from .. import _device
+from . import _build
 
 LTP_ORDER = 5
 MAX_D = 16
 CHUNK = 8    # feedback reach is lag-2 >= 14 even at the NB minimum lag
+MAX_L = MAX_H = 320  # the kernel's longest frame and history (16 kHz)
+
+# kernel launches made by `silk_synthesis_step` (not by the plain version)
+silk_synthesis_launches = 0
+
+
+def reset_launches() -> None:
+    global silk_synthesis_launches
+    silk_synthesis_launches = 0
 
 
 class SilkFrameParams(NamedTuple):
@@ -110,9 +124,11 @@ def _lpc_scan(a, x, hist):
     return buf[:, MAX_D:], buf[:, T:].flip(1)
 
 
-def silk_synthesis_step(params: SilkFrameParams, state: SilkStreamState,
-                        nb_subfr: int = 4, subfr_len: int = 80):
-    """One SILK frame for all streams; returns (out (S, L), new state)."""
+def silk_synthesis_step_reference(params: SilkFrameParams,
+                                  state: SilkStreamState,
+                                  nb_subfr: int = 4, subfr_len: int = 80):
+    """One SILK frame for all streams, eager torch (the plain version of
+    the kernel); returns (out (S, L), new state)."""
     S, L = params.exc.shape
     H = state.out_hist.shape[1]
     dev = params.exc.device
@@ -156,3 +172,161 @@ def silk_synthesis_step(params: SilkFrameParams, state: SilkStreamState,
     out = torch.cat([y1, y2], dim=1)
     new_hist = torch.cat([state.out_hist, out], dim=1)[:, -H:]
     return out, SilkStreamState(new_hist, h2)
+
+
+# the kernel's inputs in SilkSynArg's order (csrc/silk_synthesis.h) and
+# the dtype it reads each as
+_INPUTS = (("exc", torch.float32), ("a", torch.float32),
+           ("b", torch.float32), ("pitch_l", torch.int32),
+           ("gains", torch.float32), ("voiced", torch.bool),
+           ("ltp_scale", torch.float32), ("interp", torch.bool),
+           ("out_hist", torch.float32), ("lpc_hist", torch.float32))
+
+
+def _lane_shapes(L: int, H: int, nb_subfr: int) -> dict:
+    """A stream's shape of each input."""
+    return {"exc": (L,), "a": (2, MAX_D), "b": (nb_subfr, LTP_ORDER),
+            "pitch_l": (nb_subfr,), "gains": (nb_subfr,), "voiced": (),
+            "ltp_scale": (), "interp": (), "out_hist": (H,),
+            "lpc_hist": (MAX_D,)}
+
+
+_P, _INT = ctypes.c_void_p, ctypes.c_int
+# each entry point's arguments: the pointer array, the stride array, S, L,
+# H, nb_subfr, subfr_len (and the kernel's CUDA stream)
+_ARGTYPES = {
+    "mousiki_silk_synthesis": [_P, _P, _INT, _INT, _INT, _INT, _INT, _P],
+    "silk_synthesis_host_step": [_P, _P, _INT, _INT, _INT, _INT, _INT],
+}
+
+
+def build_kernel() -> None:
+    """Compile and load the kernel now (it is otherwise built on first
+    launch)."""
+    _build.load("silk_synthesis")
+
+
+def _entry(lib, symbol: str):
+    fn = getattr(lib, symbol)
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lane_contiguous(t: torch.Tensor) -> bool:
+    """Whether each stream's part of t (all axes but the first) is one
+    contiguous row."""
+    want = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size > 1 and stride != want:
+            return False
+        want *= size
+    return True
+
+
+def _check_shape(L: int, H: int, nb_subfr: int, subfr_len: int) -> None:
+    half = (L // 2 // subfr_len) * subfr_len if subfr_len > 0 else 0
+    if not (2 * MAX_D <= L <= MAX_L and 0 <= H <= MAX_H
+            and 1 <= nb_subfr <= 4 and subfr_len >= 1 and L % CHUNK == 0
+            and half % CHUNK == 0 and half >= MAX_D and L - half >= MAX_D):
+        raise ValueError(
+            f"the SILK synthesis kernel takes frames of whole 8-sample "
+            f"chunks in both halves, L <= {MAX_L}, H <= {MAX_H}, up to 4 "
+            f"subframes; got L={L}, H={H}, nb_subfr={nb_subfr}, "
+            f"subfr_len={subfr_len}")
+
+
+def _kernel_inputs(params: SilkFrameParams, state: SilkStreamState,
+                   nb_subfr: int, subfr_len: int):
+    """Check a call against what the kernel takes; returns the inputs in
+    SilkSynArg's order (a stream's row contiguous: the tensor itself where
+    it is, a strided view such as the mixed lane's among them, else one
+    copy; pitch_l as int32; None for a missing interp) and the device."""
+    S, L = params.exc.shape
+    H = state.out_hist.shape[1]
+    _check_shape(L, H, nb_subfr, subfr_len)
+    dev = params.exc.device
+    fields = {**params._asdict(), **state._asdict()}
+    lanes = _lane_shapes(L, H, nb_subfr)
+    out = []
+    for name, dtype in _INPUTS:
+        t = fields[name]
+        if t is None and name == "interp":
+            out.append(None)
+            continue
+        shape = (S, *lanes[name])
+        if tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, exc on {dev}")
+        if name == "pitch_l" and t.dtype in (torch.int32, torch.int64):
+            t = t.to(torch.int32)
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        out.append(t if _lane_contiguous(t) else t.contiguous())
+    return out, dev
+
+
+def _run(params: SilkFrameParams, state: SilkStreamState, nb_subfr: int,
+         subfr_len: int, host: bool):
+    """One frame through the kernel, on CUDA tensors, or through the host
+    build of its arithmetic, on CPU tensors (`host`); returns (out, new
+    state)."""
+    inputs, dev = _kernel_inputs(params, state, nb_subfr, subfr_len)
+    if host != (dev.type == "cpu"):
+        raise ValueError(f"the {'host build' if host else 'kernel'} does "
+                         f"not take tensors on {dev}")
+    S, L = params.exc.shape
+    H = state.out_hist.shape[1]
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in ((S, L), (S, H), (S, MAX_D))]
+    if S == 0:
+        return outs[0], SilkStreamState(*outs[1:])
+    ptrs = (ctypes.c_void_p * (len(inputs) + 3))(
+        *(0 if t is None else t.data_ptr() for t in inputs),
+        *(t.data_ptr() for t in outs))
+    strides = (ctypes.c_int64 * len(inputs))(
+        *(0 if t is None else t.stride(0) for t in inputs))
+    if host:
+        symbol = "silk_synthesis_host_step"
+        rc = _entry(_build.load_header_host("silk_synthesis"), symbol)(
+            ptrs, strides, S, L, H, nb_subfr, subfr_len)
+    else:
+        symbol = "mousiki_silk_synthesis"
+        fn = _entry(_build.load("silk_synthesis"), symbol)
+        with torch.cuda.device(dev):
+            rc = fn(ptrs, strides, S, L, H, nb_subfr, subfr_len,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: "
+                           f"{'' if host else 'cuda error '}{rc}")
+    return outs[0], SilkStreamState(*outs[1:])
+
+
+def silk_synthesis_step(params: SilkFrameParams, state: SilkStreamState,
+                        nb_subfr: int = 4, subfr_len: int = 80):
+    """One SILK frame for all streams; returns (out (S, L), new state).
+
+    CPU tensors take `silk_synthesis_step_reference`; CUDA tensors launch
+    silk_synthesis_kernel once, and raise on a shape, dtype or device the
+    kernel does not take. interp=None means no interpolated halves."""
+    dev = params.exc.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SILK synthesis runs on cpu or cuda, not {dev}")
+    if dev.type == "cpu":
+        return silk_synthesis_step_reference(params, state, nb_subfr,
+                                             subfr_len)
+    out = _run(params, state, nb_subfr, subfr_len, host=False)
+    if params.exc.shape[0]:
+        global silk_synthesis_launches
+        silk_synthesis_launches += 1
+    return out
+
+
+def silk_synthesis_step_host(params: SilkFrameParams,
+                             state: SilkStreamState, nb_subfr: int = 4,
+                             subfr_len: int = 80):
+    """`silk_synthesis_step` on CPU tensors through the host build of the
+    kernel's arithmetic (csrc/silk_synthesis.h), the streams one after
+    another."""
+    return _run(params, state, nb_subfr, subfr_len, host=True)

@@ -13,7 +13,10 @@ float32 steps, and, on the card, the kernel against the plain version.
     noise floor, the residual, the decay and the synthesis steps (a row
     that saturates at +-65536 among them) bit for bit; logf and expf are
     the C library's there and torch's vectorised ones here, within 2
-    float32 ulps of each value.
+    float32 ulps of each value. The kernel's one-thread synthesis chain
+    (plc_synthesis_chain: the window in a ring, the 24 products summed in
+    the warp butterfly's tree order) equals the plain synthesis bit for
+    bit on the same rows.
 (c) On the card (`cuda`): the kernel against the plain version on the
     seeded rows and a random batch: the LPC within 1e-4, ext within 1e-3
     of each row's peak, the rows of streams that are not lost 0.0.
@@ -158,7 +161,8 @@ def _lib():
     lib = _build.load_plc_rows_host()
     for name in ("plc_host_noise_floor", "plc_host_levinson",
                  "plc_host_levinson_coef", "plc_host_residual",
-                 "plc_host_decay", "plc_host_atten", "plc_host_synth"):
+                 "plc_host_decay", "plc_host_atten", "plc_host_synth",
+                 "plc_host_synthesis"):
         getattr(lib, name).restype = None
     return lib
 
@@ -274,7 +278,9 @@ def test_host_decay_and_excitation_match_the_plain_steps():
 
 def test_host_synthesis_steps_match_the_plain_synthesis():
     """Each step of plc._lpc_synthesis's loop against plc_synth given the
-    step's float64 sum; one row saturates at +65536 and -65536."""
+    step's float64 sum; one row saturates at +65536 and -65536. The whole
+    chain as the kernel runs it (its own sums in the butterfly's tree
+    order) gives the same bits."""
     lib = _lib()
     rows = plc_cases.plc_rows(np.random.default_rng(46))
     hist = torch.from_numpy(rows["hist"])
@@ -290,6 +296,13 @@ def test_host_synthesis_steps_match_the_plain_synthesis():
     (got,) = _host(lib.plc_host_synth, sums.numpy(), e_ext.numpy(),
                    out_dtypes=[np.float32])
     np.testing.assert_array_equal(got, want.flatten().numpy())
+    tail = np.ascontiguousarray(hist[..., -plc.ORDER:].numpy())
+    taps = np.ascontiguousarray(lpc.numpy())
+    chain = np.zeros(want.shape, np.float32)
+    lib.plc_host_synthesis(*map(_ptr, (tail, taps, e_ext.numpy(), chain)),
+                           ctypes.c_long(hist.shape[0] * hist.shape[1]),
+                           ctypes.c_int(N_EXT))
+    np.testing.assert_array_equal(chain, want.numpy())
     sat = rows["names"].index("saturating_synthesis_p100")
     assert (want[sat] == 65536.0).any() and (want[sat] == -65536.0).any()
 

@@ -10,7 +10,7 @@ mousiki_tpu_torch and golden_streams.py), so that two versions of the
 package are compared on one card in one call (A, B, B, A).
 
 --target steps (the default): a child builds what the package builds at
-first use, then times three steps, the three taking turns, three runs
+first use, then times four steps, the four taking turns, three runs
 each of 8 steps after warm-up (host wall time a step, the card
 synchronised at the end of a run):
 
@@ -20,6 +20,9 @@ synchronised at the end of a run):
                (seed 7), so that every step conceals;
   mixed        OpusStreamPipeline(256, channels=1) on the five golden
                mono streams, loss-free;
+  mixed_device_silk
+               the same with silk_synthesis="device" (the wide-band SILK
+               streams synthesised on the card);
 
 and counts the kernel launches of one profiled step of each (host-side
 launch calls under torch.profiler).
@@ -78,6 +81,10 @@ def _steps_child() -> dict:
                                              lost[:, f % 12])),
         "mixed": (OpusStreamPipeline(S, channels=1, device=dev),
                   lambda f: frame_batch(mono, S, f % 12, packets=True)),
+        "mixed_device_silk": (
+            OpusStreamPipeline(S, channels=1, silk_synthesis="device",
+                               device=dev),
+            lambda f: frame_batch(mono, S, f % 12, packets=True)),
     }
     runs = {name: [] for name in modes}
     frame = {name: 0 for name in modes}
