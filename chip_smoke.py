@@ -20,8 +20,9 @@ thing if any module of mousiki_tpu is loaded):
      (csrc/band_assembly.cu), the comb filter kernel
      (csrc/comb_filter.cu), the concealment's row kernel
      (csrc/plc_rows.cu), the two SILK quantizer kernels
-     (csrc/silk_nsq.cu) and the device SILK synthesis kernel
-     (csrc/silk_synthesis.cu), each source with its build time;
+     (csrc/silk_nsq.cu, with ptxas's report on their registers and
+     spills from a compile of its own) and the device SILK synthesis
+     kernel (csrc/silk_synthesis.cu), each source with its build time;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -134,11 +135,16 @@ thing if any module of mousiki_tpu is loaded):
      tie at every sample exactly equal (pulses and seed_used), lanes that
      hold the same call equal to each other, and every output equal to
      the host build of the kernels' arithmetic (csrc/silk_nsq.h, g++);
-     then each kernel's time a call by CUDA events, its bound (the bytes
-     of the call's inputs and outputs over HBM bandwidth against its
-     float operations over the fp32 peak) and share, the time of one
-     sample of the chain, and the plain version's device time and wall
-     time of one call;
+     the same at every other width of NSQ_WIDTHS (the delayed decision
+     at 8, 2 and 1, the widths of phases 13 and 13b; the single state at
+     1, its chain alone), each lane equal to the S = 256 lane that holds
+     its call and held to the plain version; then at each width each
+     kernel's time a call by CUDA events, its bound (the bytes of the
+     call's inputs and outputs over HBM bandwidth against its float
+     operations over the fp32 peak) and share, the time of one sample of
+     the chain, the plain version's device time and wall time of one
+     call, and the kernel's registers, stack, spills and shared memory as
+     ptxas reports them in phase 2;
  3f. the device SILK synthesis kernel (ops/silk_synthesis.
      silk_synthesis_step: gain scale, re-whitening, LTP and LPC of a
      whole frame, one launch a step) against its plain version on the
@@ -579,10 +585,14 @@ NSQ_KERNELS = {
                     "nsq_del_dec_kernel"),
 }
 NSQ_SOURCE = "mousiki_tpu_torch/csrc/silk_nsq.cu"
-# the widths the paths give each kernel: phase 12 and the profiles at
-# S = 256; SilkEncodePipeline(8) and its one-stream twin (phase 13); the
-# two wide-band lanes of the encode quality chain (phase 13b)
-NSQ_WIDTHS = {"nsq_frame": {S_MAIN}, "nsq_del_dec": {S_MAIN, 8, 1, 2}}
+# the widths phase 3e times each kernel at: the paths' (phase 12 and the
+# profiles at S = 256; SilkEncodePipeline(8) and its one-stream twin
+# (phase 13); the two wide-band lanes of the encode quality chain (phase
+# 13b)), and one stream alone, its chain
+NSQ_WIDTHS = {"nsq_frame": {S_MAIN, 1}, "nsq_del_dec": {S_MAIN, 8, 1, 2}}
+# kernel -> its registers, stack, spills and shared memory as ptxas
+# reports them (phase 2)
+NSQ_PTXAS: dict = {}
 # kernel -> {(path, S): launches in the path's run}
 NSQ_LAUNCHES: dict = {name: {} for name in NSQ_KERNELS}
 # at most this many launches in a profiled dispatch's nsq.quantize span
@@ -672,6 +682,7 @@ def phase_build():
         comb = pool.submit(_timed, synthesis.build_comb_kernel)
         rows = pool.submit(_timed, plc.build_plc_kernel)
         nsq = pool.submit(_timed, silk_nsq.build_kernel)
+        nsq_ptxas = pool.submit(_build.ptxas_info, "silk_nsq")
         syn = pool.submit(_timed, silk_syn.build_kernel)
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
@@ -683,10 +694,22 @@ def phase_build():
             comb_filter_seconds=comb.result(),
             plc_rows="csrc/plc_rows.cu", plc_rows_seconds=rows.result(),
             silk_nsq="csrc/silk_nsq.cu", silk_nsq_seconds=nsq.result(),
+            silk_nsq_ptxas=_nsq_ptxas(nsq_ptxas.result()),
             silk_synthesis="csrc/silk_synthesis.cu",
             silk_synthesis_seconds=syn.result(),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
+
+
+def _nsq_ptxas(entries: dict) -> dict:
+    """NSQ_PTXAS from ptxas's report on csrc/silk_nsq.cu (by entry), each
+    quantizer kernel found by its symbol; returns it."""
+    for name, (_, symbol) in NSQ_KERNELS.items():
+        found = [v for k, v in entries.items() if symbol in k]
+        check(len(found) == 1, f"ptxas reports no one {symbol}: "
+              f"{sorted(entries)}")
+        NSQ_PTXAS[name] = found[0]
+    return NSQ_PTXAS
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -2166,7 +2189,8 @@ def phase_nsq_kernels(dev, widths):
                                  (want, plain_wall_ms)),
                         calls=n, unused_lanes=int(unused.sum()),
                         tied_lanes=tied_lanes,
-                        kernel_equals_host_build=host_equal)}
+                        kernel_equals_host_build=host_equal,
+                        ptxas=NSQ_PTXAS.get(name))}
         for W in sorted(widths[name] - {S}):
             w_lanes = (np.arange(W) * n) // W
             w_args = nsq_cases.batch(calls, W, dev, del_dec, lanes=w_lanes)

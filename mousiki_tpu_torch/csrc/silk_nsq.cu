@@ -15,20 +15,33 @@
 // sample's pulse decides the dither and the filter states of the next).
 // Bytes (about 10 KB a stream) and operations (a few hundred a sample and
 // state) are small; streams run at once, one block a stream, so a launch
-// takes about one stream's chain. The block keeps the chain in its shared
-// memory: the three work planes of the plain version (xq, shaping and
-// re-whitened LTP, 640 columns each), the delay lines or the four trellis
-// states with their 40-sample rings, and the subframe's coefficients. Its
-// 128 threads share what does not depend on the chain (each subframe's
-// re-whitening FIR and gain rescaling, a thread a column); the samples run
-// on thread 0 (single state) or on threads 0-3 of the first warp, one
-// trellis state each, meeting at __syncwarp for the decisions (winner,
-// worst head, best runner-up; the replacement copies a state word by word,
-// split over the four threads). Streams share no arithmetic, so a stream's
+// takes about one stream's chain, and the design shortens the chain by
+// spreading a sample's products over a warp's lanes. The block keeps the
+// three work planes of the plain version (xq, shaping and re-whitened LTP,
+// 640 columns each) in shared memory; its 128 threads share what does not
+// depend on the chain (each subframe's re-whitening FIR and gain
+// rescaling, a thread a column). The single state runs its samples on warp
+// 0: the two delay lines are windows over the lanes' registers that move
+// down a lane a sample (one shuffle each), the LPC and shaping products one
+// a lane, summed in the plain version's order (eight lane partials
+// gathered by shuffles, then added in sequence); since the newest sample
+// is the last product that order adds, the rest of the next sample's sums
+// are formed while a sample decides, and the chain carries one multiply
+// and two adds of them. The delayed decision runs one trellis state a
+// warp: a state's LPC history, warped shaping chain, row of the rotation
+// Lw and coefficients sit in its lanes' registers, its rings in shared
+// memory; a sample is the two candidates (the dot products over the
+// lanes), what another state may need published in shared memory, one
+// barrier of the block, then on every lane the decisions (winner, worst
+// head, best runner-up), the replaced state's copy (over the warp's 32
+// lanes), the winner's delayed emission (thread 0) and the advance, row j
+// of the warped rotation on lane j, with the next sample's reads and LPC
+// partials formed beside it. Streams share no arithmetic, so a stream's
 // pulses do not depend on its batch.
 //
 // Arithmetic is the plain version's, one rounding an operation, in
-// silk_nsq.h (shared with the host build of the CPU tests).
+// silk_nsq.h (shared with the host build of the CPU tests, which runs the
+// same lane code lane by lane).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +59,8 @@ __global__ void __launch_bounds__(kThreads) nsq_frame_kernel(NsqArgs g) {
 
 __global__ void __launch_bounds__(kThreads) nsq_del_dec_kernel(NsqArgs g) {
   __shared__ NsqDDWork w;
-  nsq_dd_stream(g, blockIdx.x, w, threadIdx.x, kThreads);
+  NsqDDRegs r;   // the warp's state, the thread's lane of it
+  nsq_dd_stream(g, blockIdx.x, w, r, threadIdx.x, kThreads);
 }
 
 }  // namespace

@@ -17,14 +17,24 @@
 // int32_t (signed overflow is undefined in C++).
 //
 // The stream routines take the thread's index and the number of threads:
-// columns of the prologue are spread over the threads, the sample loop runs
-// on thread 0 (single state) or on threads 0-3, one trellis state each
-// (delayed decision), and NSQ_SYNC / NSQ_SYNC_STATES are the barriers
-// between the parts. With one thread (the host build) the same code runs
-// the parts in order, the four states one after another. csrc/silk_nsq.cu
-// includes this header for its two kernels; with SILK_NSQ_HOST_API defined,
-// g++ builds it alone into a host library whose entry points run whole
-// frames of S streams one after another (ops/_build.build_silk_nsq_host).
+// columns of the prologue are spread over the threads. The sample loops
+// run on warps, a sample's products one a lane: the single state on warp 0
+// (its delay lines a window over the lanes), the delayed decision on warps
+// 0-3, one trellis state each (its filter state and rotation in the lanes'
+// registers, what another state may need published in shared memory and
+// read behind one barrier a sample). What a sample's chain does not need
+// from the sample before it (the dot products' other products and lane
+// partials, the LTP and harmonic reads) is formed while that sample
+// decides, in nsq_sum's order. The lane-level code is written once,
+// for both builds, with the NSQ_LANES / NSQ_MY / NSQ_OF macros below: on
+// the device a lane variable is one register and NSQ_OF a shuffle; on the
+// host (nthr == 1) a lane variable is an array of the warp's 32 values, each
+// NSQ_LANES block a loop over them and NSQ_EACH_STATE a loop over the four
+// states, so the host build runs the device's per-lane arithmetic, lane by
+// lane, with the same combining steps. csrc/silk_nsq.cu includes this
+// header for its two kernels; with SILK_NSQ_HOST_API defined, g++ builds it
+// alone into a host library whose entry points run whole frames of S
+// streams one after another (ops/_build.build_silk_nsq_host).
 
 #ifndef MOUSIKI_SILK_NSQ_H_
 #define MOUSIKI_SILK_NSQ_H_
@@ -45,14 +55,12 @@
 #define NSQ_FSUB(a, b) __fsub_rn(a, b)
 #define NSQ_FDIV(a, b) __fdiv_rn(a, b)
 #define NSQ_SYNC() __syncthreads()
-#define NSQ_SYNC_STATES() __syncwarp(0xfu)
 #else
 #define NSQ_FMUL(a, b) ((a) * (b))
 #define NSQ_FADD(a, b) ((a) + (b))
 #define NSQ_FSUB(a, b) ((a) - (b))
 #define NSQ_FDIV(a, b) ((a) / (b))
 #define NSQ_SYNC() ((void)0)
-#define NSQ_SYNC_STATES() ((void)0)
 #endif
 
 // the executor's shape (parallel/nsq_batch.py): 16 kHz, 20 ms frames
@@ -183,21 +191,41 @@ NSQ_HD float nsq_clampf(float v, float lo, float hi) {
 // order) added lane after lane; below 8, four lanes the same way. Exact
 // for n = 1-5, 8, 16 and 24 (the quantizers' 5, 16 and 24); another n sums
 // in an order of its own. The entries from nz on are zeros and are left
-// out (a lane of zeros adds nothing).
+// out (a lane of zeros adds nothing). The lanes may sit on a warp's lanes
+// (nsq_lanes_sum): lane l's column of entries col[c] = p[l + c W] is added
+// up by nsq_partial, the W partials in lane order by nsq_combine (entries
+// and lanes from top on are left out).
+template <int MAXN, int W>
+NSQ_HD float nsq_partial(const float* col, int l, int top) {
+  float acc = col[0];
+#pragma unroll
+  for (int c = 1; c * W < MAXN; ++c)
+    if (l + c * W < top) acc = NSQ_FADD(acc, col[c]);
+  return acc;
+}
+
+template <int W>
+NSQ_HD float nsq_combine(const float* part, int top) {
+  float s = part[0];
+#pragma unroll
+  for (int l = 1; l < W; ++l)
+    if (l < top) s = NSQ_FADD(s, part[l]);
+  return s;
+}
+
 template <int MAXN, int W>
 NSQ_HD float nsq_sum_lanes(const float* p, int top) {
-  float s = 0.0f;
+  constexpr int kCols = (MAXN + W - 1) / W;
+  float part[W];
 #pragma unroll
   for (int l = 0; l < W; ++l) {
-    if (l < top) {
-      float acc = p[l];
+    float col[kCols];
 #pragma unroll
-      for (int j = l + W; j < MAXN; j += W)
-        if (j < top) acc = NSQ_FADD(acc, p[j]);
-      s = l == 0 ? acc : NSQ_FADD(s, acc);
-    }
+    for (int c = 0; c < kCols; ++c)
+      col[c] = l + c * W < MAXN ? p[l + c * W] : 0.0f;
+    part[l] = nsq_partial<MAXN, W>(col, l, top);
   }
-  return s;
+  return nsq_combine<W>(part, top);
 }
 
 template <int MAXN>
@@ -212,28 +240,25 @@ NSQ_HD float nsq_sum(const float* p, int n) {
   return nsq_sum<MAXN>(p, n, n);
 }
 
-// _dead_zone_q0: the first pulse candidate
+// _dead_zone_q0: the first pulse candidate (every branch's value computed,
+// then one chosen: no branch in the sample's chain)
 NSQ_HD int nsq_dead_zone(float r, float offset, float rdo, bool use_dz) {
   const float q = NSQ_FSUB(r, offset);
-  float v;
-  if (!use_dz)
-    v = floorf(q);
-  else if (q > rdo)
-    v = floorf(NSQ_FSUB(q, rdo));
-  else if (q < -rdo)
-    v = floorf(NSQ_FADD(q, rdo));
-  else
-    v = q < 0.0f ? -1.0f : 0.0f;
+  const float above = floorf(NSQ_FSUB(q, rdo));
+  const float below = floorf(NSQ_FADD(q, rdo));
+  const float inside = q < 0.0f ? -1.0f : 0.0f;
+  const float v = !use_dz ? floorf(q)
+                          : (q > rdo ? above : (q < -rdo ? below : inside));
   return static_cast<int>(v);
 }
 
 // _level_val: the dequantized excitation level of the pulse q
 NSQ_HD float nsq_level(int q, float offset) {
   const float qf = static_cast<float>(q);
-  if (q > 0) return NSQ_FADD(NSQ_FSUB(qf, NSQ_QLA), offset);
-  if (q == 0) return offset;
-  if (q == -1) return NSQ_FSUB(offset, NSQ_ONE_QLA);
-  return NSQ_FADD(NSQ_FADD(qf, NSQ_QLA), offset);
+  const float pos = NSQ_FADD(NSQ_FSUB(qf, NSQ_QLA), offset);
+  const float neg = NSQ_FADD(NSQ_FADD(qf, NSQ_QLA), offset);
+  const float minus1 = NSQ_FSUB(offset, NSQ_ONE_QLA);
+  return q > 0 ? pos : (q == 0 ? offset : (q == -1 ? minus1 : neg));
 }
 
 // lam * |v| + (r - v)^2
@@ -309,22 +334,36 @@ NSQ_HD void nsq_prologue_cols(float* xq, float* shp, float* ltp,
   }
 }
 
+// column c of a plane, or e_val where c is e_col: the column the delayed
+// decision's emission wrote at the last sample, which every state holds in
+// a register (the thread that writes the plane may not have reached it)
+NSQ_HD float nsq_plane(const float* plane, int c, int e_col, float e_val) {
+  const float v = plane[c];   // loaded either way: no branch around it
+  return c == e_col ? e_val : v;
+}
+
 // the per-stream reads of a sample at absolute column t: the LTP
 // prediction from the re-whitened buffer and the harmonic shaping term
 NSQ_HD float nsq_ltp_pred(const float* ltp, const float* b_k, int t, int lag,
-                          bool voiced) {
+                          bool voiced, int e_col = -1, float e_ltp = 0.0f) {
   float p[NSQ_LTP];
 #pragma unroll
   for (int j = 0; j < NSQ_LTP; ++j)
-    p[j] = NSQ_FMUL(b_k[j], ltp[nsq_clampi(t - lag + 2 - j, 0, NSQ_ML - 1)]);
+    p[j] = NSQ_FMUL(b_k[j], nsq_plane(ltp, nsq_clampi(t - lag + 2 - j, 0,
+                                                     NSQ_ML - 1),
+                                      e_col, e_ltp));
   return voiced ? nsq_sum<NSQ_LTP>(p, NSQ_LTP) : 0.0f;
 }
 
-NSQ_HD float nsq_n_ltp(const float* shp, float harm, int t, int lag) {
+NSQ_HD float nsq_n_ltp(const float* shp, float harm, int t, int lag,
+                       int e_col = -1, float e_shp = 0.0f) {
   if (lag <= 0) return 0.0f;
-  const float h0 = shp[nsq_clampi(t - lag + 1, 0, NSQ_ML - 1)];
-  const float h1 = shp[nsq_clampi(t - lag, 0, NSQ_ML - 1)];
-  const float h2 = shp[nsq_clampi(t - lag - 1, 0, NSQ_ML - 1)];
+  const float h0 =
+      nsq_plane(shp, nsq_clampi(t - lag + 1, 0, NSQ_ML - 1), e_col, e_shp);
+  const float h1 =
+      nsq_plane(shp, nsq_clampi(t - lag, 0, NSQ_ML - 1), e_col, e_shp);
+  const float h2 =
+      nsq_plane(shp, nsq_clampi(t - lag - 1, 0, NSQ_ML - 1), e_col, e_shp);
   return NSQ_FMUL(harm, NSQ_FADD(NSQ_FMUL(0.25f, NSQ_FADD(h0, h2)),
                                  NSQ_FMUL(0.5f, h1)));
 }
@@ -336,16 +375,283 @@ NSQ_HD float nsq_residual(float x, float lpc_pred, float ltp_pred, float n_ar,
                                                 n_ar), n_lf), n_ltp));
 }
 
+// ------------------------------------------------------------- the lanes
+
+// The lane-level code of the sample loops, written once for both builds.
+// A lane variable (NSQ_LANE_VAR) holds one value a lane; an NSQ_LANES
+// block is what each lane runs for itself, `lane` its index; NSQ_MY is
+// the running lane's value and NSQ_OF(v, src) lane src's (src taken
+// modulo 32). On the device a lane variable is the thread's register and
+// NSQ_OF a shuffle, so every lane of the warp runs each NSQ_OF (never in
+// one arm of a condition); on the host a lane variable is an array of 32
+// and an NSQ_LANES block a loop over the lanes, so a block reads with
+// NSQ_OF only lane variables it does not write. Code outside the blocks
+// is the same on every lane of a warp (the host runs it once).
+// NSQ_EACH_STATE runs its body for the trellis state of the thread's warp
+// (the host: for each of the four in turn), whose registers sit at
+// NSQ_SLOT(n).
+#define NSQ_WARP 32
+#if defined(__CUDA_ARCH__)
+#define NSQ_LANE_SLOTS 1
+#define NSQ_MY(v) ((v)[0])
+#define NSQ_OF(v, src) \
+  __shfl_sync(0xffffffffu, (v)[0], (src) & (NSQ_WARP - 1))
+#define NSQ_LANES                                                       \
+  for (int lane = static_cast<int>(threadIdx.x) & (NSQ_WARP - 1),      \
+           lanes_once_ = 1;                                             \
+       lanes_once_; lanes_once_ = 0)
+#define NSQ_SYNC_WARP() __syncwarp()
+#define NSQ_STATE_SLOTS 1
+#define NSQ_EACH_STATE(n)                                               \
+  for (int n = static_cast<int>(threadIdx.x) / NSQ_WARP, states_once_ = 1; \
+       states_once_; states_once_ = 0)
+#define NSQ_SLOT(n) 0
+#else
+#define NSQ_LANE_SLOTS NSQ_WARP
+#define NSQ_MY(v) ((v)[lane])
+#define NSQ_OF(v, src) ((v)[(src) & (NSQ_WARP - 1)])
+#define NSQ_LANES for (int lane = 0; lane < NSQ_WARP; ++lane)
+#define NSQ_SYNC_WARP() ((void)0)
+#define NSQ_STATE_SLOTS NSQ_STATES
+#define NSQ_EACH_STATE(n) for (int n = 0; n < NSQ_STATES; ++n)
+#define NSQ_SLOT(n) (n)
+#endif
+#define NSQ_LANE_VAR(T, v) T v[NSQ_LANE_SLOTS]
+
+// The W lane partials of nsq_sum's lanes over products held one a lane
+// (product m on lane base + m), the products from top on left out, on
+// every lane: lane l < W gathers its column and adds it up (nsq_partial),
+// then each lane takes the W partials.
+template <int MAXN, int W>
+NSQ_HD void nsq_lanes_parts(const float* p, int top, int base, float* parts) {
+  constexpr int kCols = (MAXN + W - 1) / W;
+  NSQ_LANE_VAR(float, part);
+  NSQ_LANES {
+    float col[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) col[c] = NSQ_OF(p, base + lane + c * W);
+    NSQ_MY(part) = nsq_partial<MAXN, W>(col, lane, top);
+  }
+#pragma unroll
+  for (int l = 0; l < W; ++l) parts[l] = NSQ_OF(part, l);
+}
+
+// the sum of n products one a lane in nsq_sum's order, on every lane
+template <int MAXN>
+NSQ_HD float nsq_lanes_sum(const float* p, int n, int base) {
+  if (n >= 8) {
+    float parts[8];
+    nsq_lanes_parts<MAXN, 8>(p, n, base, parts);
+    return nsq_combine<8>(parts, n);
+  }
+  float parts[4];
+  nsq_lanes_parts<8, 4>(p, n, base, parts);
+  return nsq_combine<4>(parts, n);
+}
+
+// The same sum less its last product (n - 1) where that is the last entry
+// of the last lane added (n a multiple of the lane width W,
+// nsq_lanes_split): *head = the partials of lanes 0 .. W - 2 added in
+// order, *rest = lane W - 1's partial without the last product (unused
+// where n == W). nsq_lanes_tail adds the last product to them, in
+// nsq_sum's order.
+template <int MAXN>
+NSQ_HD void nsq_lanes_head(const float* p, int n, int base, float* head,
+                           float* rest) {
+  if (n >= 8) {
+    float parts[8];
+    nsq_lanes_parts<MAXN, 8>(p, n - 1, base, parts);
+    *head = nsq_combine<8>(parts, 7);
+    *rest = parts[7];
+  } else {
+    float parts[4];
+    nsq_lanes_parts<8, 4>(p, n - 1, base, parts);
+    *head = nsq_combine<4>(parts, 3);
+    *rest = parts[3];
+  }
+}
+
+NSQ_HD float nsq_lanes_tail(float head, float rest, float last, int n) {
+  const int w = n >= 8 ? 8 : 4;
+  return NSQ_FADD(head, n == w ? last : NSQ_FADD(rest, last));
+}
+
+// whether nsq_lanes_head can split a sum of n products
+NSQ_HD bool nsq_lanes_split(int n) { return n % (n >= 8 ? 8 : 4) == 0; }
+
+// N floats of shared memory (16-byte aligned, N a multiple of 4) into
+// registers, four a load on the device
+template <int N>
+NSQ_HD void nsq_load(const float* p, float* out) {
+#pragma unroll
+  for (int m = 0; m < N; m += 4) {
+#if defined(__CUDA_ARCH__)
+    const float4 v = *reinterpret_cast<const float4*>(p + m);
+    out[m] = v.x;
+    out[m + 1] = v.y;
+    out[m + 2] = v.z;
+    out[m + 3] = v.w;
+#else
+    for (int j = 0; j < 4; ++j) out[m + j] = p[m + j];
+#endif
+  }
+}
+
+// The parts of a sample that the clock probe times (tools/nsq_probe.cu
+// defines NSQ_PROBE_BEGIN, NSQ_PROBE, NSQ_PROBE_SKIP and NSQ_PROBE_END:
+// NSQ_PROBE(part) adds the cycles since the last mark to `part`,
+// NSQ_PROBE_SKIP marks without adding, NSQ_PROBE_END adds a function's
+// sums to the thread's record). Empty in the kernels' own build and in the
+// host build.
+enum NsqProbePart {
+  kProbePrologue,  // a subframe's prologue, its barriers included
+  kProbeReads,     // the LTP prediction and the harmonic term
+  kProbeDots,      // the LPC and shaping dot products
+  kProbeCand,      // the residual and the candidates, what a state publishes
+  kProbeBarrier,   // the delayed decision's barrier
+  kProbeDecide,    // the decisions (single state: the pulse)
+  kProbeReplace,   // the replacement of a state
+  kProbeEmit,      // the planes written (the delayed emission)
+  kProbeAdvance,   // the rotation and the rings; the windows moved
+  kProbeFlush,     // the flushes and the outputs
+  kProbeParts
+};
+#ifndef NSQ_PROBE
+#define NSQ_PROBE_BEGIN()
+#define NSQ_PROBE(part)
+#define NSQ_PROBE_SKIP()
+#define NSQ_PROBE_END()
+#endif
+
 // --------------------------------------------------- the single state
 
-// one stream's buffers (the plain version's, column for column)
+// one stream's planes (the plain version's, column for column)
 struct NsqFrameWork {
   float xq[NSQ_ML], shp[NSQ_ML], ltp[NSQ_ML];
-  // the delay lines, oldest first: column 16 + n (24 + n) <-> time n
-  float lpc_h[NSQ_LPC + NSQ_L], ar_h[NSQ_SHAPE + NSQ_L];
   float x_sc[NSQ_SUB];
   int32_t pulses[NSQ_L];
 };
+
+// The samples of subframe k on warp 0. The delay lines are windows over
+// its lanes, oldest first: at sample n lane m holds the xq of time n - 16 +
+// m (lanes 0-15) and the diff of time n - 24 + m (lanes 0-23), with the LPC
+// coefficient a_k[15 - m] and the shaping one ar_k[23 - m] (a_l, ar_l; on
+// the lanes the order reaches). The newest value is the last product that
+// nsq_sum adds (the LPC sum's product 15; the shaping sum's product order -
+// 1 where the order is a multiple of the lane width, kSplitAr), so each
+// sample forms the next one's sums but that product from the window moved
+// down a lane while it decides, and the next sample adds the product of
+// the newest value to them (nsq_lanes_tail). The rest of a sample is the
+// same on every lane; lane 0 writes the planes. (Reading the next sample's
+// LTP and harmonic columns early as well, where the lag allows, was no
+// faster on the card.)
+template <bool kSplitAr>
+NSQ_HD void nsq_frame_samples(const NsqArgs& g, int s, int k, const NsqSub& sf,
+                              NsqFrameWork& w, float* win_lpc, float* win_ar,
+                              const float* a_l, const float* ar_l,
+                              int32_t& seed, float& s_lf_ar, float& s_diff,
+                              float lam, float offset, float rdo,
+                              bool use_dz) {
+  const int order = g.order, fo = k * NSQ_SUB;
+  const bool voiced = g.voiced[s] != 0;
+  const float* b_k = g.b + (s * NSQ_NB + k) * NSQ_LTP;
+  const float harm = g.harm[s * NSQ_NB + k], tilt = g.tilt[s * NSQ_NB + k];
+  const float lf_ma = g.lf_ma[s * NSQ_NB + k];
+  const float lf_ar_c = g.lf_ar[s * NSQ_NB + k];
+  // the newest values' coefficients (lanes 15 and 23)
+  const float a_new = nsq_a_k(g, s, k)[0];
+  const float ar_new = g.ar_shp[(s * NSQ_NB + k) * NSQ_SHAPE];
+  // sample 0's parts, as each sample forms them for the next
+  float lpc_head, lpc_rest, ar_head = 0.0f, ar_rest = 0.0f;
+  {
+    NSQ_LANE_VAR(float, p_lpc);
+    NSQ_LANE_VAR(float, p_ar);
+    NSQ_LANES {
+      NSQ_MY(p_lpc) = NSQ_FMUL(NSQ_MY(a_l), NSQ_MY(win_lpc));
+      NSQ_MY(p_ar) = NSQ_FMUL(NSQ_MY(ar_l), NSQ_MY(win_ar));
+    }
+    nsq_lanes_head<NSQ_LPC>(p_lpc, NSQ_LPC, 0, &lpc_head, &lpc_rest);
+    if (kSplitAr)
+      nsq_lanes_head<NSQ_SHAPE>(p_ar, order, NSQ_SHAPE - order, &ar_head,
+                                &ar_rest);
+  }
+  float xq_new = NSQ_OF(win_lpc, NSQ_LPC - 1);
+  float diff_new = NSQ_OF(win_ar, NSQ_SHAPE - 1);
+  float shp_prev = w.shp[NSQ_M + fo - 1];
+  NSQ_PROBE_BEGIN();
+  for (int i = 0; i < NSQ_SUB; ++i) {
+    const int n = fo + i, t = NSQ_M + n;
+    seed = nsq_rand(seed);
+    const float ltp_pred = nsq_ltp_pred(w.ltp, b_k, t, sf.lag, voiced);
+    const float n_ltp = nsq_n_ltp(w.shp, harm, t, sf.lag);
+    const float x_i = w.x_sc[i];
+    NSQ_PROBE(kProbeReads);
+    const float lpc_pred = nsq_lanes_tail(lpc_head, lpc_rest,
+                                          NSQ_FMUL(a_new, xq_new), NSQ_LPC);
+    float ar_dot;
+    if (kSplitAr) {
+      ar_dot = nsq_lanes_tail(ar_head, ar_rest, NSQ_FMUL(ar_new, diff_new),
+                              order);
+    } else {
+      NSQ_LANE_VAR(float, p_ar);
+      NSQ_LANES { NSQ_MY(p_ar) = NSQ_FMUL(NSQ_MY(ar_l), NSQ_MY(win_ar)); }
+      ar_dot = nsq_lanes_sum<NSQ_SHAPE>(p_ar, order, NSQ_SHAPE - order);
+    }
+    NSQ_PROBE(kProbeDots);
+    // the windows moved down a lane (the newest values enter at the end
+    // of the sample), and the next sample's parts from them
+    NSQ_LANE_VAR(float, up_lpc);
+    NSQ_LANE_VAR(float, up_ar);
+    NSQ_LANE_VAR(float, p_lpc);
+    NSQ_LANE_VAR(float, p_ar);
+    NSQ_LANES {
+      // every lane takes part in the shuffles, the last ones too
+      NSQ_MY(up_lpc) = NSQ_OF(win_lpc, lane + 1);
+      NSQ_MY(up_ar) = NSQ_OF(win_ar, lane + 1);
+      NSQ_MY(p_lpc) = NSQ_FMUL(NSQ_MY(a_l), NSQ_MY(up_lpc));
+      NSQ_MY(p_ar) = NSQ_FMUL(NSQ_MY(ar_l), NSQ_MY(up_ar));
+    }
+    nsq_lanes_head<NSQ_LPC>(p_lpc, NSQ_LPC, 0, &lpc_head, &lpc_rest);
+    if (kSplitAr)
+      nsq_lanes_head<NSQ_SHAPE>(p_ar, order, NSQ_SHAPE - order, &ar_head,
+                                &ar_rest);
+    NSQ_PROBE(kProbeAdvance);
+    const float n_ar = NSQ_FADD(ar_dot, NSQ_FMUL(tilt, s_lf_ar));
+    const float n_lf = NSQ_FADD(NSQ_FMUL(lf_ma, shp_prev),
+                                NSQ_FMUL(lf_ar_c, s_lf_ar));
+    const bool neg = seed < 0;
+    float r = nsq_residual(x_i, lpc_pred, ltp_pred, n_ar, n_lf, n_ltp);
+    r = nsq_clampf(neg ? -r : r, -31.0f, 30.0f);
+    int q0 = nsq_dead_zone(r, offset, rdo, use_dz);
+    float v1 = nsq_level(q0, offset);
+    const float v2 = nsq_level(q0 + 1, offset);
+    const bool take2 = nsq_rd(lam, r, v2) < nsq_rd(lam, r, v1);
+    q0 = nsq_clampi(take2 ? q0 + 1 : q0, -1000, 1000);
+    v1 = take2 ? v2 : v1;
+    const float lpc_exc = NSQ_FADD(neg ? -v1 : v1, ltp_pred);
+    xq_new = NSQ_FADD(lpc_exc, lpc_pred);
+    s_diff = NSQ_FSUB(xq_new, x_i);
+    diff_new = s_diff;
+    s_lf_ar = NSQ_FSUB(s_diff, n_ar);
+    shp_prev = NSQ_FSUB(s_lf_ar, n_lf);
+    seed = nsq_add_wrap(seed, q0);
+    NSQ_PROBE(kProbeDecide);
+    NSQ_LANES {
+      if (lane == 0) {
+        w.xq[t] = NSQ_FMUL(xq_new, sf.gain);
+        w.shp[t] = shp_prev;
+        w.ltp[t] = lpc_exc;
+        w.pulses[n] = q0;
+      }
+      NSQ_MY(win_lpc) = lane == NSQ_LPC - 1 ? xq_new : NSQ_MY(up_lpc);
+      NSQ_MY(win_ar) = lane == NSQ_SHAPE - 1 ? s_diff : NSQ_MY(up_ar);
+    }
+    // lane 0's plane columns, read by every lane at the next sample
+    NSQ_SYNC_WARP();
+    NSQ_PROBE(kProbeEmit);
+  }
+  NSQ_PROBE_END();
+}
 
 NSQ_HD void nsq_frame_stream(const NsqArgs& g, int s, NsqFrameWork& w,
                              int tid, int nthr) {
@@ -356,11 +662,17 @@ NSQ_HD void nsq_frame_stream(const NsqArgs& g, int s, NsqFrameWork& w,
     w.shp[c] = c < NSQ_M ? g.shp[s * NSQ_M + c] : 0.0f;
     w.ltp[c] = 0.0f;
   }
-  for (int c = tid; c < NSQ_LPC + NSQ_L; c += nthr)
-    w.lpc_h[c] = c < NSQ_LPC ? g.s_lpc[s * NSQ_LPC + NSQ_LPC - 1 - c] : 0.0f;
-  for (int c = tid; c < NSQ_SHAPE + NSQ_L; c += nthr)
-    w.ar_h[c] =
-        c < NSQ_SHAPE ? g.s_ar2[s * NSQ_SHAPE + NSQ_SHAPE - 1 - c] : 0.0f;
+  NSQ_LANE_VAR(float, win_lpc);
+  NSQ_LANE_VAR(float, win_ar);
+  NSQ_LANE_VAR(float, a_l);
+  NSQ_LANE_VAR(float, ar_l);
+  NSQ_LANES {
+    NSQ_MY(win_lpc) =
+        lane < NSQ_LPC ? g.s_lpc[s * NSQ_LPC + NSQ_LPC - 1 - lane] : 0.0f;
+    NSQ_MY(win_ar) = lane < NSQ_SHAPE
+                         ? g.s_ar2[s * NSQ_SHAPE + NSQ_SHAPE - 1 - lane]
+                         : 0.0f;
+  }
   // the carried scalars, the same on every thread
   float s_lf_ar = g.s_lf_ar[s], s_diff = g.s_diff[s];
   float prev_gain = g.prev_gain[s];
@@ -369,80 +681,45 @@ NSQ_HD void nsq_frame_stream(const NsqArgs& g, int s, NsqFrameWork& w,
   const float lam = g.lam[s], offset = g.offset[s];
   const float rdo = NSQ_FSUB(NSQ_FMUL(0.5f, lam), 0.5f);
   const bool use_dz = lam > 2.0f;
+  const bool split_ar = nsq_lanes_split(order);
+  NSQ_PROBE_BEGIN();
   NSQ_SYNC();
   for (int k = 0; k < NSQ_NB; ++k) {
     const int fo = k * NSQ_SUB;
     const NsqSub sf = nsq_subframe(g, s, k, lag_state, prev_gain);
     const float* a_k = nsq_a_k(g, s, k);
+    const float* ar_k = g.ar_shp + (s * NSQ_NB + k) * NSQ_SHAPE;
     nsq_prologue_cols(w.xq, w.shp, w.ltp, a_k, sf, voiced, k, NSQ_M + fo,
                       tid, nthr);
     for (int c = tid; c < NSQ_SUB; c += nthr)
       w.x_sc[c] = NSQ_FMUL(g.x[s * NSQ_L + fo + c], sf.inv_gain);
-    for (int c = tid; c < NSQ_LPC; c += nthr)
-      w.lpc_h[fo + c] = NSQ_FMUL(w.lpc_h[fo + c], sf.adj);
-    for (int c = tid; c < NSQ_SHAPE; c += nthr)
-      w.ar_h[fo + c] = NSQ_FMUL(w.ar_h[fo + c], sf.adj);
+    NSQ_LANES {
+      if (lane < NSQ_LPC) NSQ_MY(win_lpc) = NSQ_FMUL(NSQ_MY(win_lpc), sf.adj);
+      if (lane < NSQ_SHAPE) NSQ_MY(win_ar) = NSQ_FMUL(NSQ_MY(win_ar), sf.adj);
+      NSQ_MY(a_l) = lane < NSQ_LPC ? a_k[NSQ_LPC - 1 - lane] : 0.0f;
+      NSQ_MY(ar_l) = lane < NSQ_SHAPE && lane >= NSQ_SHAPE - order
+                         ? ar_k[NSQ_SHAPE - 1 - lane] : 0.0f;
+    }
     s_lf_ar = NSQ_FMUL(s_lf_ar, sf.adj);
     s_diff = NSQ_FMUL(s_diff, sf.adj);
     prev_gain = sf.gain;
     NSQ_SYNC();
-    if (tid == 0) {
-      const float* b_k = g.b + (s * NSQ_NB + k) * NSQ_LTP;
-      const float* ar_k = g.ar_shp + (s * NSQ_NB + k) * NSQ_SHAPE;
-      const float harm = g.harm[s * NSQ_NB + k], tilt = g.tilt[s * NSQ_NB + k];
-      const float lf_ma = g.lf_ma[s * NSQ_NB + k];
-      const float lf_ar_c = g.lf_ar[s * NSQ_NB + k];
-      float a_rev[NSQ_LPC], ar_rev[NSQ_SHAPE];
-#pragma unroll
-      for (int m = 0; m < NSQ_LPC; ++m) a_rev[m] = a_k[NSQ_LPC - 1 - m];
-#pragma unroll
-      for (int m = 0; m < NSQ_SHAPE; ++m)
-        ar_rev[m] = m < order ? ar_k[order - 1 - m] : 0.0f;
-      for (int i = 0; i < NSQ_SUB; ++i) {
-        const int n = fo + i, t = NSQ_M + n;
-        seed = nsq_rand(seed);
-        float p[NSQ_SHAPE];
-#pragma unroll
-        for (int m = 0; m < NSQ_LPC; ++m)
-          p[m] = NSQ_FMUL(a_rev[m], w.lpc_h[n + m]);
-        const float lpc_pred = nsq_sum<NSQ_LPC>(p, NSQ_LPC);
-        const float ltp_pred = nsq_ltp_pred(w.ltp, b_k, t, sf.lag, voiced);
-#pragma unroll
-        for (int m = 0; m < NSQ_SHAPE; ++m)
-          if (m < order)
-            p[m] = NSQ_FMUL(ar_rev[m], w.ar_h[NSQ_SHAPE + n - order + m]);
-        const float n_ar = NSQ_FADD(nsq_sum<NSQ_SHAPE>(p, order),
-                                    NSQ_FMUL(tilt, s_lf_ar));
-        const float n_lf = NSQ_FADD(NSQ_FMUL(lf_ma, w.shp[t - 1]),
-                                    NSQ_FMUL(lf_ar_c, s_lf_ar));
-        const float n_ltp = nsq_n_ltp(w.shp, harm, t, sf.lag);
-        const float x_i = w.x_sc[i];
-        const bool neg = seed < 0;
-        float r = nsq_residual(x_i, lpc_pred, ltp_pred, n_ar, n_lf, n_ltp);
-        r = nsq_clampf(neg ? -r : r, -31.0f, 30.0f);
-        int q0 = nsq_dead_zone(r, offset, rdo, use_dz);
-        float v1 = nsq_level(q0, offset);
-        const float v2 = nsq_level(q0 + 1, offset);
-        const bool take2 = nsq_rd(lam, r, v2) < nsq_rd(lam, r, v1);
-        q0 = nsq_clampi(take2 ? q0 + 1 : q0, -1000, 1000);
-        v1 = take2 ? v2 : v1;
-        const float lpc_exc = NSQ_FADD(neg ? -v1 : v1, ltp_pred);
-        const float xq_v = NSQ_FADD(lpc_exc, lpc_pred);
-        w.xq[t] = NSQ_FMUL(xq_v, sf.gain);
-        w.lpc_h[NSQ_LPC + n] = xq_v;
-        s_diff = NSQ_FSUB(xq_v, x_i);
-        w.ar_h[NSQ_SHAPE + n] = s_diff;
-        s_lf_ar = NSQ_FSUB(s_diff, n_ar);
-        w.shp[t] = NSQ_FSUB(s_lf_ar, n_lf);
-        w.ltp[t] = lpc_exc;
-        seed = nsq_add_wrap(seed, q0);
-        w.pulses[n] = q0;
-      }
+    NSQ_PROBE(kProbePrologue);
+    if (tid < NSQ_WARP) {
+      if (split_ar)
+        nsq_frame_samples<true>(g, s, k, sf, w, win_lpc, win_ar, a_l, ar_l,
+                                seed, s_lf_ar, s_diff, lam, offset, rdo,
+                                use_dz);
+      else
+        nsq_frame_samples<false>(g, s, k, sf, w, win_lpc, win_ar, a_l, ar_l,
+                                 seed, s_lf_ar, s_diff, lam, offset, rdo,
+                                 use_dz);
     }
+    NSQ_PROBE_SKIP();
     lag_state = sf.lag;
     NSQ_SYNC();
   }
-  // the sample loop's scalars, from thread 0's copy
+  // the windows and scalars of the sample loop, from warp 0
   for (int c = tid; c < NSQ_L; c += nthr) {
     g.pulses[s * NSQ_L + c] = w.pulses[c];
     g.xq_frame[s * NSQ_L + c] = w.xq[NSQ_M + c];
@@ -451,74 +728,105 @@ NSQ_HD void nsq_frame_stream(const NsqArgs& g, int s, NsqFrameWork& w,
     g.o_xq[s * NSQ_M + c] = w.xq[NSQ_L + c];
     g.o_shp[s * NSQ_M + c] = w.shp[NSQ_L + c];
   }
-  for (int c = tid; c < NSQ_LPC; c += nthr)
-    g.o_s_lpc[s * NSQ_LPC + c] = w.lpc_h[NSQ_LPC + NSQ_L - 1 - c];
-  for (int c = tid; c < NSQ_SHAPE; c += nthr)
-    g.o_s_ar2[s * NSQ_SHAPE + c] = w.ar_h[NSQ_SHAPE + NSQ_L - 1 - c];
+  if (tid < NSQ_WARP) {
+    NSQ_LANES {
+      if (lane < NSQ_LPC)
+        g.o_s_lpc[s * NSQ_LPC + NSQ_LPC - 1 - lane] = NSQ_MY(win_lpc);
+      if (lane < NSQ_SHAPE)
+        g.o_s_ar2[s * NSQ_SHAPE + NSQ_SHAPE - 1 - lane] = NSQ_MY(win_ar);
+    }
+  }
   if (tid == 0) {
     g.o_s_lf_ar[s] = s_lf_ar;
     g.o_s_diff[s] = s_diff;
     g.o_lag_prev[s] = voiced ? g.pitch_l[s * NSQ_NB + NSQ_NB - 1] : 0;
     g.o_prev_gain[s] = prev_gain;
   }
+  NSQ_PROBE(kProbeFlush);
+  NSQ_PROBE_END();
 }
 
 // ------------------------------------------------- the delayed decision
 
 enum { kRingQ, kRingXq, kRingPred, kRingShape, kRings };
+// a candidate's values: vq, lexc, xqv, d, lfar, shape
+enum { kCandVq, kCandLexc, kCandXq, kCandD, kCandLfar, kCandShape, kCands };
 
-// One trellis state: a replacement copies the whole struct (rd, lf_ar and
-// diff are then set from the replacing candidate, as in the plain version)
-struct NsqDDState {
-  float rd, lf_ar, diff;
-  int32_t seed, seed_init;
-  float s_lpc[NSQ_LPC];   // newest first
-  float s_ar2[NSQ_SHAPE]; // the warped chain, [0, order)
-  int32_t r_rand[NSQ_DD];
+// one trellis state's rings and dither history (a replacement copies them)
+struct NsqDDRings {
   float ring[kRings][NSQ_DD];
+  int32_t r_rand[NSQ_DD];
 };
 
-// the two candidates of a state at a sample: cost, then vq, lexc, xqv, d,
-// lfar, shape
-enum { kCandVq, kCandLexc, kCandXq, kCandD, kCandLfar, kCandShape, kCands };
-struct NsqDDCand {
-  float rd[2];
-  float v[2][kCands];
+// What a state publishes at a sample, before the barrier: the decisions'
+// inputs, and what a state that replaces it or the emission take from it.
+struct alignas(16) NsqDDPub {
+  float rhs[NSQ_SHAPE];  // the rotation's right-hand side; rhs[0] less d
+  float s_lpc[NSQ_LPC];
+  float cand1[kCands];   // the runner-up candidate
+  float rd[2];           // the head's and the runner-up's costs
+  float last[kRings];    // the rings at the emitted column `last`
+  int32_t rr_last, seed, seed_init;
 };
 
 struct NsqDDWork {
   float xq[NSQ_ML], shp[NSQ_ML], ltp[NSQ_ML];
   float x_sc[NSQ_SUB];
-  float lw[NSQ_SHAPE * NSQ_SHAPE];
   float delayed_gain[NSQ_DD];
   int32_t pulses[NSQ_L];
-  NsqDDState st[NSQ_STATES];
-  NsqDDCand cand[NSQ_STATES];
-  int win;   // the final flush's winner
+  NsqDDRings st[NSQ_STATES];
+  NsqDDPub pub[2][NSQ_STATES];   // by the sample's parity
+  float rd[NSQ_STATES];          // each state's cost at a flush
 };
 
-// state n's two candidates at sample i (head: the ring head before the
-// sample moves it)
-NSQ_HD void nsq_dd_candidates(NsqDDWork& w, int n, const float* a_k,
-                              const float* ar_k, int order, float tilt,
-                              float lf_ma, float lf_ar_c, float x_i,
-                              float ltp_pred, float n_ltp, float lam,
+// a state's scalars, the same on each of its lanes
+struct NsqDDWarp {
+  float rd, lf_ar, diff;
+  int32_t seed, seed_init;
+  float cand0[kCands];   // the sample's head candidate
+  float xq_new;          // s_lpc[0], the newest xq
+  // the next LPC sum but its first product (a_k[0] s_lpc[0]): product 8,
+  // then the partials of lanes 1-7, in nsq_sum's order
+  float lpc_rest[8];
+};
+
+// The states' registers (on the device the thread's state and lane, on
+// the host all of them): a state's scalars; a lane's part of its filter
+// state (s_lpc[lane] on lanes 0-15, newest first; s_ar2[lane] on the lanes
+// below the order), the subframe's coefficients a_k[lane] and
+// ar_k[lane], and row `lane` of the rotation Lw (zeros past the diagonal).
+struct NsqDDRegs {
+  NsqDDWarp st[NSQ_STATE_SLOTS];
+  float s_lpc[NSQ_STATE_SLOTS][NSQ_LANE_SLOTS];
+  float s_ar2[NSQ_STATE_SLOTS][NSQ_LANE_SLOTS];
+  float a[NSQ_STATE_SLOTS][NSQ_LANE_SLOTS];
+  float ar[NSQ_STATE_SLOTS][NSQ_LANE_SLOTS];
+  float lw[NSQ_STATE_SLOTS][NSQ_LANE_SLOTS][NSQ_SHAPE];
+};
+
+// a candidate's values from its pulse level vq
+NSQ_HD void nsq_dd_values(float vq, float sgn, float ltp_pred,
+                          float lpc_pred, float x_i, float n_ar, float n_lf,
+                          float* c) {
+  const float lexc = NSQ_FADD(NSQ_FMUL(sgn, vq), ltp_pred);
+  const float xqv = NSQ_FADD(lexc, lpc_pred);
+  const float d = NSQ_FSUB(xqv, x_i);
+  const float lfar = NSQ_FSUB(d, n_ar);
+  c[kCandVq] = vq;
+  c[kCandLexc] = lexc;
+  c[kCandXq] = xqv;
+  c[kCandD] = d;
+  c[kCandLfar] = lfar;
+  c[kCandShape] = NSQ_FSUB(lfar, n_lf);
+}
+
+// a state's two candidates at a sample: the costs (head, runner-up) into
+// rd and their values into c0 and c1
+NSQ_HD void nsq_dd_candidates(float sgn, float rd_state, float x_i,
+                              float lpc_pred, float ltp_pred, float n_ar,
+                              float n_lf, float n_ltp, float lam,
                               float offset, float rdo, bool use_dz,
-                              int head) {
-  NsqDDState& st = w.st[n];
-  st.seed = nsq_rand(st.seed);
-  const float sgn = st.seed < 0 ? -1.0f : 1.0f;
-  float p[NSQ_SHAPE];
-#pragma unroll
-  for (int m = 0; m < NSQ_LPC; ++m) p[m] = NSQ_FMUL(a_k[m], st.s_lpc[m]);
-  const float lpc_pred = nsq_sum<NSQ_LPC>(p, NSQ_LPC);
-#pragma unroll
-  for (int j = 0; j < NSQ_SHAPE; ++j)
-    if (j < order) p[j] = NSQ_FMUL(ar_k[j], st.s_ar2[j]);
-  const float n_ar = NSQ_FADD(nsq_sum<NSQ_SHAPE>(p, order),
-                              NSQ_FMUL(tilt, st.lf_ar));
-  const float n_lf = NSQ_FADD(NSQ_FMUL(lf_ma, st.ring[kRingShape][head]),
-                              NSQ_FMUL(lf_ar_c, st.lf_ar));
+                              float* rd, float* c0, float* c1) {
   float r = nsq_residual(x_i, lpc_pred, ltp_pred, n_ar, n_lf, n_ltp);
   r = nsq_clampf(NSQ_FMUL(sgn, r), -31.0f, 30.0f);
   const int q0 = nsq_dead_zone(r, offset, rdo, use_dz);
@@ -527,148 +835,68 @@ NSQ_HD void nsq_dd_candidates(NsqDDWork& w, int n, const float* a_k,
                            : (q0 == -1 ? offset : NSQ_FADD(v1, 1.0f));
   const float rd1 = nsq_rd(lam, r, v1), rd2 = nsq_rd(lam, r, v2);
   const bool swap = rd2 < rd1;
-  NsqDDCand& c = w.cand[n];
-  c.rd[0] = NSQ_FADD(st.rd, swap ? rd2 : rd1);
-  c.rd[1] = NSQ_FADD(st.rd, swap ? rd1 : rd2);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float vq = (h == 0) == swap ? v2 : v1;
-    const float lexc = NSQ_FADD(NSQ_FMUL(sgn, vq), ltp_pred);
-    const float xqv = NSQ_FADD(lexc, lpc_pred);
-    const float d = NSQ_FSUB(xqv, x_i);
-    const float lfar = NSQ_FSUB(d, n_ar);
-    c.v[h][kCandVq] = vq;
-    c.v[h][kCandLexc] = lexc;
-    c.v[h][kCandXq] = xqv;
-    c.v[h][kCandD] = d;
-    c.v[h][kCandLfar] = lfar;
-    c.v[h][kCandShape] = NSQ_FSUB(lfar, n_lf);
-  }
+  rd[0] = NSQ_FADD(rd_state, swap ? rd2 : rd1);
+  rd[1] = NSQ_FADD(rd_state, swap ? rd1 : rd2);
+  nsq_dd_values(swap ? v2 : v1, sgn, ltp_pred, lpc_pred, x_i, n_ar, n_lf, c0);
+  nsq_dd_values(swap ? v1 : v2, sgn, ltp_pred, lpc_pred, x_i, n_ar, n_lf, c1);
 }
 
 // the decisions of a sample over the four states: the winner, the
 // rand-consistency penalty (added after rd + rd1 / rd2, as a float32
 // add), the worst head mx and the best runner-up mn; ties go to the lowest
-// index (torch.argmin / argmax)
+// index (torch.argmin / argmax). The four states' costs and dither are
+// read once; the extremes are carried as values, not read back by an
+// index known at run time (which would put the arrays in local memory).
 struct NsqDDDecision {
   int win, mx, mn;
   bool rep;          // state mx takes state mn's runner-up
   float c1_best;
-  float c0_rd[NSQ_STATES];   // the heads' costs after the penalty
+  float c0_own;      // state `own`'s head cost after the penalty
 };
 
-NSQ_HD NsqDDDecision nsq_dd_decide(const NsqDDWork& w, int last) {
-  NsqDDDecision d;
-  d.win = 0;
-#pragma unroll
-  for (int n = 1; n < NSQ_STATES; ++n)
-    if (w.cand[n].rd[0] < w.cand[d.win].rd[0]) d.win = n;
-  const int32_t rr_win = w.st[d.win].r_rand[last];
-  float c1[NSQ_STATES];
+NSQ_HD NsqDDDecision nsq_dd_decide(const NsqDDPub* pub, int own) {
+  float rd0[NSQ_STATES], rd1[NSQ_STATES];
+  int32_t rr[NSQ_STATES];
 #pragma unroll
   for (int n = 0; n < NSQ_STATES; ++n) {
-    const bool bad = w.st[n].r_rand[last] != rr_win;
-    d.c0_rd[n] = bad ? NSQ_FADD(w.cand[n].rd[0], NSQ_BIG_RD) : w.cand[n].rd[0];
-    c1[n] = bad ? NSQ_FADD(w.cand[n].rd[1], NSQ_BIG_RD) : w.cand[n].rd[1];
+    rd0[n] = pub[n].rd[0];
+    rd1[n] = pub[n].rd[1];
+    rr[n] = pub[n].rr_last;
+  }
+  NsqDDDecision d;
+  d.win = 0;
+  float best = rd0[0];
+  int32_t rr_win = rr[0];
+#pragma unroll
+  for (int n = 1; n < NSQ_STATES; ++n) {
+    if (rd0[n] < best) {
+      d.win = n;
+      best = rd0[n];
+      rr_win = rr[n];
+    }
   }
   d.mx = 0;
   d.mn = 0;
+  float c0_mx = 0.0f, c1_mn = 0.0f;
+  d.c0_own = 0.0f;
 #pragma unroll
-  for (int n = 1; n < NSQ_STATES; ++n) {
-    if (d.c0_rd[n] > d.c0_rd[d.mx]) d.mx = n;
-    if (c1[n] < c1[d.mn]) d.mn = n;
-  }
-  d.c1_best = c1[d.mn];
-  d.rep = d.c1_best < d.c0_rd[d.mx];
-  return d;
-}
-
-// word e of state `src` over state `dst` (the struct is 32-bit fields
-// only): one 32-bit load and store on the device, memcpy on the host
-NSQ_HD void nsq_copy_word(NsqDDState& dst, const NsqDDState& src, int e) {
-#if defined(__CUDA_ARCH__)
-  reinterpret_cast<uint32_t*>(&dst)[e] =
-      reinterpret_cast<const uint32_t*>(&src)[e];
-#else
-  memcpy(reinterpret_cast<char*>(&dst) + 4 * e,
-         reinterpret_cast<const char*>(&src) + 4 * e, 4);
-#endif
-}
-
-// the candidate state n advances with: its head, or mn's runner-up where
-// it is the replaced state mx
-NSQ_HD void nsq_dd_chosen(const NsqDDWork& w, int n, const NsqDDDecision& d,
-                          float* c) {
-  const float* src = d.rep && n == d.mx ? w.cand[d.mn].v[1] : w.cand[n].v[0];
-#pragma unroll
-  for (int e = 0; e < kCands; ++e) c[e] = src[e];
-}
-
-// state n advances with its chosen candidate c: the warped rotation
-// new_s[j] = sum_m rhs[m] Lw[j, m] over m <= j (the zeros above the
-// diagonal skipped) in nsq_sum's lanes, the rings and the dither at the
-// new head
-NSQ_HD void nsq_dd_advance(NsqDDWork& w, int n, const NsqDDDecision& d,
-                           const float* c, int order, float warp, int head) {
-  NsqDDState& st = w.st[n];
-  const bool rep = d.rep && n == d.mx;
-  float rhs[NSQ_SHAPE];
-  rhs[0] = NSQ_FADD(c[kCandD], NSQ_FMUL(warp, st.s_ar2[0]));
-#pragma unroll
-  for (int m = 1; m < NSQ_SHAPE; ++m)
-    if (m < order)
-      rhs[m] = NSQ_FADD(st.s_ar2[m - 1], NSQ_FMUL(warp, st.s_ar2[m]));
-#pragma unroll
-  for (int j = 0; j < NSQ_SHAPE; ++j) {
-    if (j < order) {
-      float p[NSQ_SHAPE];
-#pragma unroll
-      for (int m = 0; m <= j; ++m)
-        p[m] = NSQ_FMUL(rhs[m], w.lw[j * order + m]);
-      st.s_ar2[j] = nsq_sum<NSQ_SHAPE>(p, order, j + 1);
+  for (int n = 0; n < NSQ_STATES; ++n) {
+    const bool bad = rr[n] != rr_win;
+    const float c0 = bad ? NSQ_FADD(rd0[n], NSQ_BIG_RD) : rd0[n];
+    const float c1 = bad ? NSQ_FADD(rd1[n], NSQ_BIG_RD) : rd1[n];
+    if (n == 0 || c0 > c0_mx) {
+      d.mx = n;
+      c0_mx = c0;
     }
+    if (n == 0 || c1 < c1_mn) {
+      d.mn = n;
+      c1_mn = c1;
+    }
+    if (n == own) d.c0_own = c0;
   }
-  st.lf_ar = c[kCandLfar];
-  st.diff = c[kCandD];
-#pragma unroll
-  for (int m = NSQ_LPC - 1; m > 0; --m) st.s_lpc[m] = st.s_lpc[m - 1];
-  st.s_lpc[0] = c[kCandXq];
-  st.ring[kRingQ][head] = c[kCandVq];
-  st.ring[kRingXq][head] = c[kCandXq];
-  st.ring[kRingPred][head] = c[kCandLexc];
-  st.ring[kRingShape][head] = c[kCandShape];
-  st.seed = nsq_add_wrap(
-      st.seed, static_cast<int32_t>(floorf(NSQ_FADD(c[kCandVq], 0.5f))));
-  st.r_rand[head] = st.seed;
-  st.rd = rep ? d.c1_best : d.c0_rd[n];
-}
-
-NSQ_HD int nsq_dd_argmin_rd(const NsqDDWork& w) {
-  int win = 0;
-#pragma unroll
-  for (int n = 1; n < NSQ_STATES; ++n)
-    if (w.st[n].rd < w.st[win].rd) win = n;
-  return win;
-}
-
-// Commit the dd delayed samples of the winner to the columns [fo - dd, fo)
-// of the pulses and of the xq and shaping planes (one thread); returns the
-// winner. The states that lost take the penalty.
-NSQ_HD int nsq_dd_flush(NsqDDWork& w, float gain, int fo, int dd, int head) {
-  const int win = nsq_dd_argmin_rd(w);
-#pragma unroll
-  for (int n = 0; n < NSQ_STATES; ++n)
-    if (n != win) w.st[n].rd = NSQ_FADD(w.st[n].rd, NSQ_BIG_RD);
-  const NsqDDState& st = w.st[win];
-  for (int i = 0; i < dd; ++i) {
-    const int last = (head + dd + NSQ_DD - 1 - i) % NSQ_DD;
-    const int col = fo - dd + i;
-    w.pulses[col] = static_cast<int32_t>(
-        floorf(NSQ_FADD(st.ring[kRingQ][last], 0.5f)));
-    w.xq[NSQ_M + col] = NSQ_FMUL(st.ring[kRingXq][last], gain);
-    w.shp[NSQ_M + col] = st.ring[kRingShape][last];
-  }
-  return win;
+  d.c1_best = c1_mn;
+  d.rep = c1_mn < c0_mx;
+  return d;
 }
 
 NSQ_HD float nsq_gain(const NsqArgs& g, int s, int k) {
@@ -676,17 +904,59 @@ NSQ_HD float nsq_gain(const NsqArgs& g, int s, int k) {
   return gk < NSQ_MIN_GAIN ? NSQ_MIN_GAIN : gk;
 }
 
-NSQ_HD void nsq_dd_stream(const NsqArgs& g, int s, NsqDDWork& w, int tid,
-                          int nthr) {
+// A flush: every state's cost published, the winner's dd delayed samples
+// committed by thread 0 to the columns [fo - dd, fo) of the pulses and of
+// the xq and shaping planes, the other states penalised; returns the
+// winner.
+NSQ_HD int nsq_dd_flush(NsqDDWork& w, NsqDDRegs& r, float gain, int fo,
+                        int dd, int head, int tid) {
+  NSQ_EACH_STATE(n) {
+    NSQ_LANES {
+      if (lane == 0) w.rd[n] = r.st[NSQ_SLOT(n)].rd;
+    }
+  }
+  NSQ_SYNC();
+  int win = 0;
+#pragma unroll
+  for (int n = 1; n < NSQ_STATES; ++n)
+    if (w.rd[n] < w.rd[win]) win = n;
+  if (tid == 0) {
+    const NsqDDRings& st = w.st[win];
+    for (int i = 0; i < dd; ++i) {
+      const int last = (head + dd + NSQ_DD - 1 - i) % NSQ_DD;
+      const int col = fo - dd + i;
+      w.pulses[col] = static_cast<int32_t>(
+          floorf(NSQ_FADD(st.ring[kRingQ][last], 0.5f)));
+      w.xq[NSQ_M + col] = NSQ_FMUL(st.ring[kRingXq][last], gain);
+      w.shp[NSQ_M + col] = st.ring[kRingShape][last];
+    }
+  }
+  NSQ_EACH_STATE(n) {
+    if (n != win) {
+      NsqDDWarp& st = r.st[NSQ_SLOT(n)];
+      st.rd = NSQ_FADD(st.rd, NSQ_BIG_RD);
+    }
+  }
+  NSQ_SYNC();
+  return win;
+}
+
+// A sample of the four states, each on its warp: (A) the state's two
+// candidates from its registers (the dot products over its lanes), and
+// what the others may need published; one barrier; (B) the decisions on
+// every lane from the published costs, the replaced state's registers,
+// rings and dither taken from the state it copies, the winner's delayed
+// emission by thread 0 (its values from what the winner published, and
+// forwarded to every state's next sample through e_col / e_ltp / e_shp,
+// since thread 0 may write the planes after another warp reads them), and
+// the advance: row `lane` of the warped rotation on each lane below the
+// order (its Lw row in registers, the right-hand side from the published
+// one), the LPC history moved down a lane, the rings at the new head.
+NSQ_HD void nsq_dd_stream(const NsqArgs& g, int s, NsqDDWork& w,
+                          NsqDDRegs& r, int tid, int nthr) {
   const int order = g.order;
   const bool voiced = g.voiced[s] != 0, interp = g.interp[s] != 0;
   const int lag_prev = g.lag_prev[s];
-  // the threads of the sample loop and the states each runs: threads 0-3
-  // a state each, or one thread all four
-  const bool runs_states = tid < NSQ_STATES;
-  const int n_lo = nthr == 1 ? 0 : tid;
-  const int n_hi = nthr == 1 ? NSQ_STATES : tid + 1;
-  const int n_step = nthr == 1 ? 1 : NSQ_STATES;
   for (int c = tid; c < NSQ_ML; c += nthr) {
     w.xq[c] = c < NSQ_M ? g.xq[s * NSQ_M + c] : 0.0f;
     w.shp[c] = c < NSQ_M ? g.shp[s * NSQ_M + c] : 0.0f;
@@ -695,25 +965,32 @@ NSQ_HD void nsq_dd_stream(const NsqArgs& g, int s, NsqDDWork& w, int tid,
   for (int c = tid; c < NSQ_L; c += nthr) w.pulses[c] = 0;
   for (int c = tid; c < NSQ_DD; c += nthr) w.delayed_gain[c] = 0.0f;
   const float* lw = g.lw + s * g.lw_stride;
-  for (int c = tid; c < order * order; c += nthr) w.lw[c] = lw[c];
-  if (runs_states) {
-    for (int n = n_lo; n < n_hi; ++n) {
-      NsqDDState& st = w.st[n];
-      st.rd = 0.0f;
-      st.lf_ar = g.s_lf_ar[s];
-      st.diff = g.s_diff[s];
-      st.seed = static_cast<int32_t>(
-          (static_cast<uint32_t>(n) + (static_cast<uint32_t>(g.seed[s]) & 3u))
-          & 3u);
-      st.seed_init = st.seed;
-      for (int m = 0; m < NSQ_LPC; ++m) st.s_lpc[m] = g.s_lpc[s * NSQ_LPC + m];
+  NSQ_EACH_STATE(n) {
+    const int q = NSQ_SLOT(n);
+    NsqDDWarp& st = r.st[q];
+    st.rd = 0.0f;
+    st.lf_ar = g.s_lf_ar[s];
+    st.diff = g.s_diff[s];
+    st.seed = static_cast<int32_t>(
+        (static_cast<uint32_t>(n) + (static_cast<uint32_t>(g.seed[s]) & 3u))
+        & 3u);
+    st.seed_init = st.seed;
+    NsqDDRings& rings = w.st[n];
+    NSQ_LANES {
+      NSQ_MY(r.s_lpc[q]) = lane < NSQ_LPC ? g.s_lpc[s * NSQ_LPC + lane] : 0.0f;
+      NSQ_MY(r.s_ar2[q]) =
+          lane < order ? g.s_ar2[s * NSQ_SHAPE + lane] : 0.0f;
+      float* row = NSQ_MY(r.lw[q]);
+#pragma unroll
       for (int m = 0; m < NSQ_SHAPE; ++m)
-        st.s_ar2[m] = m < order ? g.s_ar2[s * NSQ_SHAPE + m] : 0.0f;
-      for (int j = 0; j < NSQ_DD; ++j) {
-        st.r_rand[j] = 0;
-        for (int p = 0; p < kRings; ++p) st.ring[p][j] = 0.0f;
+        row[m] = lane < order && m <= lane ? lw[lane * order + m] : 0.0f;
+      for (int e = lane; e < NSQ_DD; e += NSQ_WARP) {
+        rings.r_rand[e] = 0;
+#pragma unroll
+        for (int p = 0; p < kRings; ++p)
+          rings.ring[p][e] = p == kRingShape && e == 0
+                                 ? g.shp[s * NSQ_M + NSQ_M - 1] : 0.0f;
       }
-      st.ring[kRingShape][0] = g.shp[s * NSQ_M + NSQ_M - 1];
     }
   }
   // the decision delay
@@ -736,117 +1013,262 @@ NSQ_HD void nsq_dd_stream(const NsqArgs& g, int s, NsqDDWork& w, int tid,
   const bool flush2 = voiced && interp;
   float prev_gain = g.prev_gain[s];
   int lag_state = lag_prev;
+  NSQ_PROBE_BEGIN();
   NSQ_SYNC();
   for (int k = 0; k < NSQ_NB; ++k) {
     const int fo = k * NSQ_SUB;
     // the ring head, equal for all streams, one step down a sample
     int head = (NSQ_DD - fo % NSQ_DD) % NSQ_DD;
-    if (k == 2 && flush2) {
-      // the mid-frame flush before the re-whitening, for the voiced and
-      // interpolated streams (the others are left as they are)
-      if (tid == 0) nsq_dd_flush(w, nsq_gain(g, s, 1), fo, dd, head);
-      NSQ_SYNC();
-    }
+    // the mid-frame flush before the re-whitening, for the voiced and
+    // interpolated streams (the others are left as they are)
+    if (k == 2 && flush2)
+      nsq_dd_flush(w, r, nsq_gain(g, s, 1), fo, dd, head, tid);
     const NsqSub sf = nsq_subframe(g, s, k, lag_state, prev_gain);
     const float* a_k = nsq_a_k(g, s, k);
+    const float* ar_k = g.ar_shp + (s * NSQ_NB + k) * NSQ_SHAPE;
     nsq_prologue_cols(w.xq, w.shp, w.ltp, a_k, sf, voiced, k,
                       NSQ_M + fo - dd, tid, nthr);
     for (int c = tid; c < NSQ_SUB; c += nthr)
       w.x_sc[c] = NSQ_FMUL(g.x[s * NSQ_L + fo + c], sf.inv_gain);
-    if (runs_states) {
-      for (int n = n_lo; n < n_hi; ++n) {
-        NsqDDState& st = w.st[n];
-        st.lf_ar = NSQ_FMUL(st.lf_ar, sf.adj);
-        st.diff = NSQ_FMUL(st.diff, sf.adj);
-        for (int m = 0; m < NSQ_LPC; ++m)
-          st.s_lpc[m] = NSQ_FMUL(st.s_lpc[m], sf.adj);
-        for (int m = 0; m < order; ++m)
-          st.s_ar2[m] = NSQ_FMUL(st.s_ar2[m], sf.adj);
-        for (int j = 0; j < NSQ_DD; ++j) {
-          st.ring[kRingPred][j] = NSQ_FMUL(st.ring[kRingPred][j], sf.adj);
-          st.ring[kRingShape][j] = NSQ_FMUL(st.ring[kRingShape][j], sf.adj);
+    NSQ_EACH_STATE(n) {
+      const int q = NSQ_SLOT(n);
+      NsqDDWarp& st = r.st[q];
+      st.lf_ar = NSQ_FMUL(st.lf_ar, sf.adj);
+      st.diff = NSQ_FMUL(st.diff, sf.adj);
+      NsqDDRings& rings = w.st[n];
+      NSQ_LANES {
+        if (lane < NSQ_LPC)
+          NSQ_MY(r.s_lpc[q]) = NSQ_FMUL(NSQ_MY(r.s_lpc[q]), sf.adj);
+        if (lane < order)
+          NSQ_MY(r.s_ar2[q]) = NSQ_FMUL(NSQ_MY(r.s_ar2[q]), sf.adj);
+        for (int e = lane; e < NSQ_DD; e += NSQ_WARP) {
+          rings.ring[kRingPred][e] =
+              NSQ_FMUL(rings.ring[kRingPred][e], sf.adj);
+          rings.ring[kRingShape][e] =
+              NSQ_FMUL(rings.ring[kRingShape][e], sf.adj);
         }
+        NSQ_MY(r.a[q]) = lane < NSQ_LPC ? a_k[lane] : 0.0f;
+        NSQ_MY(r.ar[q]) = lane < order ? ar_k[lane] : 0.0f;
       }
     }
     prev_gain = sf.gain;
     NSQ_SYNC();
-    if (runs_states) {
-      const float* b_k = g.b + (s * NSQ_NB + k) * NSQ_LTP;
-      const float* ar_k = g.ar_shp + (s * NSQ_NB + k) * NSQ_SHAPE;
-      const float harm = g.harm[s * NSQ_NB + k], tilt = g.tilt[s * NSQ_NB + k];
-      const float lf_ma = g.lf_ma[s * NSQ_NB + k];
-      const float lf_ar_c = g.lf_ar[s * NSQ_NB + k];
-      for (int i = 0; i < NSQ_SUB; ++i) {
-        const int t = NSQ_M + fo + i;
-        const float ltp_pred = nsq_ltp_pred(w.ltp, b_k, t, sf.lag, voiced);
-        const float n_ltp = nsq_n_ltp(w.shp, harm, t, sf.lag);
-        for (int n = n_lo; n < n_hi; ++n)
-          nsq_dd_candidates(w, n, a_k, ar_k, order, tilt, lf_ma, lf_ar_c,
-                            w.x_sc[i], ltp_pred, n_ltp, lam, offset, rdo,
-                            use_dz, head);
-        head = (head + NSQ_DD - 1) % NSQ_DD;
-        const int last = (head + dd) % NSQ_DD;
-        NSQ_SYNC_STATES();
-        const NsqDDDecision d = nsq_dd_decide(w, last);
-        // each state's candidate, read before any thread moves on to the
-        // next sample's candidates
-        float chosen[NSQ_STATES][kCands];
-        for (int n = n_lo; n < n_hi; ++n)
-          nsq_dd_chosen(w, n, d, chosen[n - n_lo]);
-        // every thread has read the states' dither before one is replaced
-        NSQ_SYNC_STATES();
-        if (d.rep) {
-          const int words = static_cast<int>(sizeof(NsqDDState) / 4);
-          for (int e = n_lo; e < words; e += n_step)
-            nsq_copy_word(w.st[d.mx], w.st[d.mn], e);
+    NSQ_PROBE(kProbePrologue);
+    const float* b_k = g.b + (s * NSQ_NB + k) * NSQ_LTP;
+    const float harm = g.harm[s * NSQ_NB + k], tilt = g.tilt[s * NSQ_NB + k];
+    const float lf_ma = g.lf_ma[s * NSQ_NB + k];
+    const float lf_ar_c = g.lf_ar[s * NSQ_NB + k];
+    const float a_first = a_k[0];
+    // the column the last sample emitted (-1: none) and its LTP and
+    // shaping values
+    int e_col = -1;
+    float e_ltp = 0.0f, e_shp = 0.0f;
+    for (int i = 0; i < NSQ_SUB; ++i) {
+      const int t = NSQ_M + fo + i;
+      const int head_new = (head + NSQ_DD - 1) % NSQ_DD;
+      const int last = (head_new + dd) % NSQ_DD;
+      NsqDDPub* pub = w.pub[i & 1];
+      const float ltp_pred =
+          nsq_ltp_pred(w.ltp, b_k, t, sf.lag, voiced, e_col, e_ltp);
+      const float n_ltp = nsq_n_ltp(w.shp, harm, t, sf.lag, e_col, e_shp);
+      NSQ_PROBE(kProbeReads);
+      NSQ_EACH_STATE(n) {
+        const int q = NSQ_SLOT(n);
+        NsqDDWarp& st = r.st[q];
+        const NsqDDRings& rings = w.st[n];
+        // the ring entries the sample reads, first
+        const float shape_head = rings.ring[kRingShape][head];
+        float at_last[kRings];
+#pragma unroll
+        for (int p = 0; p < kRings; ++p) at_last[p] = rings.ring[p][last];
+        const int32_t rr_last = rings.r_rand[last];
+        st.seed = nsq_rand(st.seed);
+        NSQ_LANE_VAR(float, p_lpc);
+        NSQ_LANE_VAR(float, p_ar);
+        NSQ_LANES {
+          NSQ_MY(p_lpc) = NSQ_FMUL(NSQ_MY(r.a[q]), NSQ_MY(r.s_lpc[q]));
+          NSQ_MY(p_ar) = NSQ_FMUL(NSQ_MY(r.ar[q]), NSQ_MY(r.s_ar2[q]));
         }
-        NSQ_SYNC_STATES();
-        // the delayed emission from the winner (after the replacement)
-        const bool emit = k == 0 ? i >= dd
-                                 : (k == 2 ? (!flush2 || i >= dd) : true);
-        if (n_lo == 0 && emit) {
-          const NsqDDState& win = w.st[d.win];
-          const int pcol = nsq_clampi(fo + i - dd, 0, NSQ_L - 1);
-          const int xcol = nsq_clampi(t - dd, 0, NSQ_ML - 1);
-          w.pulses[pcol] = static_cast<int32_t>(
-              floorf(NSQ_FADD(win.ring[kRingQ][last], 0.5f)));
-          w.xq[xcol] = NSQ_FMUL(win.ring[kRingXq][last],
-                                w.delayed_gain[last]);
-          w.shp[xcol] = win.ring[kRingShape][last];
-          w.ltp[xcol] = win.ring[kRingPred][last];
+        float lpc_pred;
+        if (i > 0) {
+          // the sum's other parts were formed in the last sample's advance
+          lpc_pred = NSQ_FADD(NSQ_FMUL(a_first, st.xq_new), st.lpc_rest[0]);
+#pragma unroll
+          for (int l = 1; l < 8; ++l)
+            lpc_pred = NSQ_FADD(lpc_pred, st.lpc_rest[l]);
+        } else {
+          lpc_pred = nsq_lanes_sum<NSQ_LPC>(p_lpc, NSQ_LPC, 0);
         }
-        NSQ_SYNC_STATES();
-        for (int n = n_lo; n < n_hi; ++n)
-          nsq_dd_advance(w, n, d, chosen[n - n_lo], order, warp, head);
-        if (n_lo == 0) w.delayed_gain[head] = sf.gain;
+        const float n_ar = NSQ_FADD(nsq_lanes_sum<NSQ_SHAPE>(p_ar, order, 0),
+                                    NSQ_FMUL(tilt, st.lf_ar));
+        NSQ_PROBE(kProbeDots);
+        const float n_lf = NSQ_FADD(NSQ_FMUL(lf_ma, shape_head),
+                                    NSQ_FMUL(lf_ar_c, st.lf_ar));
+        float rd[2], c1[kCands];
+        nsq_dd_candidates(st.seed < 0 ? -1.0f : 1.0f, st.rd, w.x_sc[i],
+                          lpc_pred, ltp_pred, n_ar, n_lf, n_ltp, lam, offset,
+                          rdo, use_dz, rd, st.cand0, c1);
+        NsqDDPub& mine = pub[n];
+        NSQ_LANES {
+          const float wa = NSQ_FMUL(warp, NSQ_MY(r.s_ar2[q]));
+          const float prev = NSQ_OF(r.s_ar2[q], lane - 1);
+          if (lane < NSQ_SHAPE)
+            mine.rhs[lane] =
+                lane == 0 ? wa : (lane < order ? NSQ_FADD(prev, wa) : 0.0f);
+          if (lane < NSQ_LPC) mine.s_lpc[lane] = NSQ_MY(r.s_lpc[q]);
+          if (lane == 0) {
+            mine.rd[0] = rd[0];
+            mine.rd[1] = rd[1];
+#pragma unroll
+            for (int e = 0; e < kCands; ++e) mine.cand1[e] = c1[e];
+#pragma unroll
+            for (int p = 0; p < kRings; ++p) mine.last[p] = at_last[p];
+            mine.rr_last = rr_last;
+            mine.seed = st.seed;
+            mine.seed_init = st.seed_init;
+          }
+        }
+        NSQ_PROBE(kProbeCand);
       }
+      NSQ_SYNC();
+      NSQ_PROBE(kProbeBarrier);
+      const bool emit =
+          k == 0 ? i >= dd : (k == 2 ? (!flush2 || i >= dd) : true);
+      const int xcol = nsq_clampi(t - dd, 0, NSQ_ML - 1);
+      NSQ_EACH_STATE(n) {
+        const int q = NSQ_SLOT(n);
+        NsqDDWarp& st = r.st[q];
+        const NsqDDDecision d = nsq_dd_decide(pub, n);
+        // the delayed emission from the winner as it stands after the
+        // replacement (the same in every state)
+        const NsqDDPub& ep = pub[d.rep && d.win == d.mx ? d.mn : d.win];
+        e_col = emit ? xcol : -1;
+        e_ltp = ep.last[kRingPred];
+        e_shp = ep.last[kRingShape];
+        NSQ_PROBE(kProbeDecide);
+        const bool replaced = d.rep && n == d.mx;
+        const NsqDDPub& src = pub[replaced ? d.mn : n];
+        float c[kCands];
+#pragma unroll
+        for (int e = 0; e < kCands; ++e) {
+          const float runner_up = src.cand1[e];
+          c[e] = replaced ? runner_up : st.cand0[e];
+        }
+        NsqDDRings& rings = w.st[n];
+        if (replaced) {
+          st.seed = src.seed;
+          st.seed_init = src.seed_init;
+          // the rings but the new head, which the advance writes and the
+          // copied state is writing
+          const NsqDDRings& from = w.st[d.mn];
+          NSQ_LANES {
+            for (int e = lane; e < NSQ_DD; e += NSQ_WARP) {
+              if (e == head_new) continue;
+#pragma unroll
+              for (int p = 0; p < kRings; ++p)
+                rings.ring[p][e] = from.ring[p][e];
+              rings.r_rand[e] = from.r_rand[e];
+            }
+          }
+          NSQ_SYNC_WARP();
+        }
+        NSQ_PROBE(kProbeReplace);
+        if (n == 0) {
+          NSQ_LANES {
+            if (lane == 0) {
+              if (emit) {
+                const int pcol = nsq_clampi(fo + i - dd, 0, NSQ_L - 1);
+                w.pulses[pcol] = static_cast<int32_t>(
+                    floorf(NSQ_FADD(ep.last[kRingQ], 0.5f)));
+                w.xq[xcol] = NSQ_FMUL(ep.last[kRingXq], w.delayed_gain[last]);
+                w.shp[xcol] = ep.last[kRingShape];
+                w.ltp[xcol] = ep.last[kRingPred];
+              }
+              w.delayed_gain[head_new] = sf.gain;
+            }
+          }
+        }
+        NSQ_PROBE(kProbeEmit);
+        NSQ_LANE_VAR(float, p_next);
+        NSQ_LANES {
+          // new_s[j] = sum_m rhs[m] Lw[j, m] over m <= j in nsq_sum's lanes
+          const float* row = NSQ_MY(r.lw[q]);
+          float p[NSQ_SHAPE];
+          nsq_load<NSQ_SHAPE>(src.rhs, p);
+          p[0] = NSQ_FADD(c[kCandD], p[0]);
+#pragma unroll
+          for (int m = 0; m < NSQ_SHAPE; ++m) p[m] = NSQ_FMUL(p[m], row[m]);
+          if (lane < order)
+            NSQ_MY(r.s_ar2[q]) = nsq_sum<NSQ_SHAPE>(p, order, lane + 1);
+          const float older = src.s_lpc[(lane + NSQ_LPC - 1) % NSQ_LPC];
+          if (lane < NSQ_LPC)
+            NSQ_MY(r.s_lpc[q]) = lane == 0 ? c[kCandXq] : older;
+          // the next LPC products but the newest (lane 0's)
+          NSQ_MY(p_next) = NSQ_FMUL(NSQ_MY(r.a[q]), older);
+        }
+        // their lane partials (nsq_lanes_sum's, lane 0's without product 0)
+        NSQ_LANE_VAR(float, part);
+        NSQ_LANES {
+          NSQ_MY(part) = NSQ_FADD(NSQ_MY(p_next), NSQ_OF(p_next, lane + 8));
+        }
+        st.lpc_rest[0] = NSQ_OF(p_next, 8);
+#pragma unroll
+        for (int l = 1; l < 8; ++l) st.lpc_rest[l] = NSQ_OF(part, l);
+        st.xq_new = c[kCandXq];
+        st.lf_ar = c[kCandLfar];
+        st.diff = c[kCandD];
+        st.seed = nsq_add_wrap(
+            st.seed, static_cast<int32_t>(floorf(NSQ_FADD(c[kCandVq], 0.5f))));
+        st.rd = replaced ? d.c1_best : d.c0_own;
+        NSQ_LANES {
+          if (lane == 0) {
+            rings.ring[kRingQ][head_new] = c[kCandVq];
+            rings.ring[kRingXq][head_new] = c[kCandXq];
+            rings.ring[kRingPred][head_new] = c[kCandLexc];
+            rings.ring[kRingShape][head_new] = c[kCandShape];
+            rings.r_rand[head_new] = st.seed;
+          }
+        }
+        // lane 0's ring entries, read by every lane at the next sample
+        NSQ_SYNC_WARP();
+        NSQ_PROBE(kProbeAdvance);
+      }
+      head = head_new;
     }
     lag_state = sf.lag;
     NSQ_SYNC();
   }
-  if (tid == 0)
-    w.win = nsq_dd_flush(w, nsq_gain(g, s, NSQ_NB - 1), NSQ_L, dd,
-                         (NSQ_DD - NSQ_L % NSQ_DD) % NSQ_DD);
-  NSQ_SYNC();
-  // the winner's state
-  const NsqDDState& st = w.st[w.win];
+  const int win = nsq_dd_flush(w, r, nsq_gain(g, s, NSQ_NB - 1), NSQ_L, dd,
+                               (NSQ_DD - NSQ_L % NSQ_DD) % NSQ_DD, tid);
   for (int c = tid; c < NSQ_L; c += nthr) g.pulses[s * NSQ_L + c] = w.pulses[c];
   for (int c = tid; c < NSQ_M; c += nthr) {
     g.o_xq[s * NSQ_M + c] = w.xq[NSQ_L + c];
     g.o_shp[s * NSQ_M + c] = w.shp[NSQ_L + c];
   }
-  for (int c = tid; c < NSQ_LPC; c += nthr)
-    g.o_s_lpc[s * NSQ_LPC + c] = st.s_lpc[c];
-  for (int c = tid; c < NSQ_SHAPE; c += nthr)
-    g.o_s_ar2[s * NSQ_SHAPE + c] =
-        c < order ? st.s_ar2[c] : g.s_ar2[s * NSQ_SHAPE + c];
+  // the winner's state, from its warp
+  NSQ_EACH_STATE(n) {
+    if (n == win) {
+      const int q = NSQ_SLOT(n);
+      const NsqDDWarp& st = r.st[q];
+      NSQ_LANES {
+        if (lane < NSQ_LPC) g.o_s_lpc[s * NSQ_LPC + lane] = NSQ_MY(r.s_lpc[q]);
+        if (lane < NSQ_SHAPE)
+          g.o_s_ar2[s * NSQ_SHAPE + lane] =
+              lane < order ? NSQ_MY(r.s_ar2[q]) : g.s_ar2[s * NSQ_SHAPE + lane];
+        if (lane == 0) {
+          g.o_s_lf_ar[s] = st.lf_ar;
+          g.o_s_diff[s] = st.diff;
+          g.seed_used[s] = st.seed_init;
+        }
+      }
+    }
+  }
   if (tid == 0) {
-    g.o_s_lf_ar[s] = st.lf_ar;
-    g.o_s_diff[s] = st.diff;
     g.o_lag_prev[s] = voiced ? g.pitch_l[s * NSQ_NB + NSQ_NB - 1] : 0;
     g.o_prev_gain[s] = prev_gain;
-    g.seed_used[s] = st.seed_init;
   }
+  NSQ_PROBE(kProbeFlush);
+  NSQ_PROBE_END();
 }
 
 #if defined(SILK_NSQ_HOST_API)
@@ -874,9 +1296,15 @@ int silk_nsq_host_del_dec(void* const* ptrs, int S, int order,
   if (order < 1 || order > NSQ_SHAPE) return -1;
   const NsqArgs g = nsq_args(ptrs, order, w_stride, lw_stride);
   NsqDDWork* w = static_cast<NsqDDWork*>(malloc(sizeof(NsqDDWork)));
-  if (w == nullptr) return -1;
-  for (int s = 0; s < S; ++s) nsq_dd_stream(g, s, *w, 0, 1);
+  NsqDDRegs* r = static_cast<NsqDDRegs*>(malloc(sizeof(NsqDDRegs)));
+  if (w == nullptr || r == nullptr) {
+    free(w);
+    free(r);
+    return -1;
+  }
+  for (int s = 0; s < S; ++s) nsq_dd_stream(g, s, *w, *r, 0, 1);
   free(w);
+  free(r);
   return 0;
 }
 

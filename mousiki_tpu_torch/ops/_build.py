@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -106,6 +107,49 @@ def build(name: str) -> str:
                     os.path.join(BUILD, f"lib{name}.so"),
                     tuple(os.path.join(CSRC, h)
                           for h in KERNEL_HEADERS.get(name, ())))
+
+
+def parse_ptxas(text: str) -> dict:
+    """nvcc -Xptxas -v's report as {entry: {"registers", "stack",
+    "spill_stores", "spill_loads", "smem"}} (bytes but registers), an
+    entry by its mangled name."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry.update(registers=int(m.group(1)),
+                         smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def ptxas_info(name: str) -> dict:
+    """The registers, stack, spills and shared memory of each kernel of
+    csrc/<name>.cu as ptxas reports them (parse_ptxas), from a compile of
+    its own that is thrown away."""
+    os.makedirs(BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v",
+                               "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+                              capture_output=True, text=True)
+    finally:
+        os.remove(tmp)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    return parse_ptxas(proc.stderr + proc.stdout)
 
 
 def build_host(name: str = "celt_host") -> str:

@@ -3,7 +3,7 @@ time of one SILK quantizer dispatch by span, at S = 256 on one GPU, for
 one or more checkouts of this repository, in turns.
 
     python3 tools/torch_step_ab.py --trees DIR_A,DIR_B --order 0,1,1,0 \\
-        [--target steps|nsq] [--out FILE]
+        [--target steps|nsq] [--probe 0,1] [--out FILE]
 
 Each entry of --order runs one child process in that checkout (its
 mousiki_tpu_torch and golden_streams.py), so that two versions of the
@@ -33,7 +33,19 @@ over the 256 lanes of an NsqBatchExecutor and, for the delayed-decision
 and the single-state quantizer in turn, runs one dispatch to warm up,
 three timed (host wall time, the card synchronised by the read-back),
 then one under torch.profiler: the host time of the executor's spans
-(nsq.h2d, nsq.quantize, nsq.d2h) and the launches in each.
+(nsq.h2d, nsq.quantize, nsq.d2h) and the launches in each. Then it times
+each kernel call alone by CUDA events (20 calls after a warm-up, queued
+behind a sleeping card so that they run back to back) on the calls of
+phase 3e of chip_smoke.py: the harvested calls and a copy of each voiced
+one without interpolation (nsq_cases.with_branches), tiled over S = 256
+lanes with every 17th unused, and spread over S = 1 (NSQ_KERNEL_WIDTHS).
+
+--probe (nsq only; indices into --trees) then builds each of those
+checkouts' csrc/silk_nsq.cu with the clock hooks of this checkout's
+tools/nsq_probe.cu (a header without hooks of its own, as before they
+were added, gets them at the points of PARENT_HOOKS) and runs each kernel
+once at the widths above: the cycles a sample of each part of the sample
+loop (NsqProbePart), warp by warp.
 
 Prints one JSON line a child and writes them all to FILE. Needs a GPU: a
 child fails without one.
@@ -47,10 +59,44 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 S = 256
 STEPS, WARM, RUNS = 8, 3, 3
 NSQ_TIMED = 3
+NSQ_KERNEL_WIDTHS = (256, 1)
+NSQ_KERNEL_REPS = 20
+# the clock probe's parts (csrc/silk_nsq.h NsqProbePart, in its order)
+PROBE_PARTS = ("prologue", "reads", "dots", "candidates", "barrier",
+               "decisions", "replacement", "emission", "advance", "flush")
+PROBE_SLOTS = 16      # tools/nsq_probe.cu kSlots
+# The hooks a silk_nsq.h without NSQ_PROBE hooks (the header of the first
+# quantizer kernels, threads 0-3 a state) gets for the probe: (the text
+# they follow, which occurrence of it, the hook). There the candidates
+# hold the dot products, the single state's dots the LTP and harmonic
+# reads, and its decision the planes' writes.
+PARENT_HOOKS = (
+    ("  const bool use_dz = lam > 2.0f;\n", 0, "NSQ_PROBE_BEGIN();"),
+    ("    prev_gain = sf.gain;\n    NSQ_SYNC();\n", 0, "NSQ_PROBE(0);"),
+    ("        const float n_ltp = nsq_n_ltp(w.shp, harm, t, sf.lag);\n", 0,
+     "NSQ_PROBE(2);"),
+    ("        w.pulses[n] = q0;\n", 0, "NSQ_PROBE(5);"),
+    ("    g.o_prev_gain[s] = prev_gain;\n  }\n", 0,
+     "NSQ_PROBE(9); NSQ_PROBE_END();"),
+    ("  int lag_state = lag_prev;\n", 0, "NSQ_PROBE_BEGIN();"),
+    ("    prev_gain = sf.gain;\n    NSQ_SYNC();\n", 1, "NSQ_PROBE(0);"),
+    ("        const float n_ltp = nsq_n_ltp(w.shp, harm, t, sf.lag);\n", 1,
+     "NSQ_PROBE(1);"),
+    ("        const int last = (head + dd) % NSQ_DD;\n", 0, "NSQ_PROBE(3);"),
+    ("        NSQ_SYNC_STATES();\n", 0, "NSQ_PROBE(4);"),
+    ("        NSQ_SYNC_STATES();\n", 1, "NSQ_PROBE(5);"),
+    ("        NSQ_SYNC_STATES();\n", 2, "NSQ_PROBE(6);"),
+    ("        NSQ_SYNC_STATES();\n", 3, "NSQ_PROBE(7);"),
+    ("        if (n_lo == 0) w.delayed_gain[head] = sf.gain;\n", 0,
+     "NSQ_PROBE(8);"),
+    ("    g.seed_used[s] = st.seed_init;\n  }\n", 0,
+     "NSQ_PROBE(9); NSQ_PROBE_END();"),
+)
 NSQ_SPANS = ("nsq.h2d", "nsq.quantize", "nsq.d2h")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
@@ -161,22 +207,148 @@ def _nsq_child() -> dict:
                 launches[_span(ev.cpu_parent)] += 1
         out["del_dec" if del_dec else "single"] = {
             "dispatch_ms": wall, "dispatch_ms_median": float(np.median(wall)),
-            "host_ms_by_span": host_ms, "launches_by_span": launches}
+            "host_ms_by_span": host_ms, "launches_by_span": launches,
+            "kernel_us": {S: _event_us(partial(kernel, *args, **kw))
+                          for S, (kernel, args, kw)
+                          in _kernel_calls(del_dec, dev).items()}}
+    return out
+
+
+def _kernel_calls(del_dec: bool, dev) -> dict:
+    """{S: (wrapper, arguments, keywords)} of one quantizer kernel at each
+    of NSQ_KERNEL_WIDTHS, on chip_smoke.py phase 3e's lanes."""
+    import numpy as np
+
+    import nsq_cases
+    kernel = nsq_cases.ROUTES[del_dec][0]
+    kw = dict(nsq_cases.KW, warping=nsq_cases.WARPING) if del_dec \
+        else nsq_cases.KW
+    calls = nsq_cases.with_branches(nsq_cases.harvest(del_dec))
+    out = {}
+    for S in NSQ_KERNEL_WIDTHS:
+        lanes = np.arange(S) % len(calls) if S > 1 else np.array([0])
+        if S > 1:
+            lanes[::17] = -1
+        out[S] = (kernel, nsq_cases.batch(calls, S, dev, del_dec,
+                                          lanes=lanes), kw)
+    return out
+
+
+def _event_us(fn) -> float:
+    """Mean µs on the card of a call of `fn`, by CUDA events around each
+    of NSQ_KERNEL_REPS calls queued behind a sleeping card (after one
+    warm-up call), so that the calls run back to back without the host's
+    gaps; fails if the host did not queue them all in time."""
+    import torch
+    fn()
+    for cycles in (1 << 24, 1 << 27):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        woke = torch.cuda.Event()
+        woke.record()
+        pairs = []
+        for _ in range(NSQ_KERNEL_REPS):
+            pairs.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            pairs[-1][0].record()
+            fn()
+            pairs[-1][1].record()
+        queued = not woke.query()
+        torch.cuda.synchronize()
+        if queued:
+            return sum(a.elapsed_time(b) for a, b in pairs) * 1e3 \
+                / NSQ_KERNEL_REPS
+    raise SystemExit("the kernel calls were not queued before the card woke")
+
+
+def hooked(src: str) -> str:
+    """A silk_nsq.h without clock hooks with PARENT_HOOKS added."""
+    for anchor, nth, hook in PARENT_HOOKS:
+        at = -1
+        for _ in range(nth + 1):
+            at = src.index(anchor, at + 1)
+        at += len(anchor)
+        src = src[:at] + hook + "\n" + src[at:]
+    return src
+
+
+def _probe_child() -> dict:
+    """This checkout's quantizer kernels built with the clock hooks of
+    tools/nsq_probe.cu, one call of each at NSQ_KERNEL_WIDTHS: cycles a
+    sample of each part, warp by warp (the mean over the streams)."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(1, HERE)
+    from mousiki_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    dev = torch.device("cuda", 0)
+    flags = [_build.nvcc_path(), *_build.NVCC_FLAGS]
+    tmp = tempfile.mkdtemp()
+    header = open(os.path.join(_build.CSRC, "silk_nsq.h")).read()
+    shutil.copy(os.path.join(_build.CSRC, "silk_nsq.cu"), tmp)
+    with open(os.path.join(tmp, "silk_nsq.h"), "w") as fh:
+        fh.write(header if "NSQ_PROBE(" in header else hooked(header))
+    lib_path = os.path.join(tmp, "libnsq_probe.so")
+    res = subprocess.run([*flags, "-I", tmp, "-o", lib_path,
+                          os.path.join(HERE, "tools", "nsq_probe.cu")],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(res.stderr)
+    out = {"tree": os.getcwd(), "device": torch.cuda.get_device_name(dev),
+           "hooks_added": "NSQ_PROBE(" not in header}
+    lib = ctypes.CDLL(lib_path)
+    lib.nsq_probe_set.argtypes = [ctypes.c_void_p]
+    real = _build._libs.get("silk_nsq")
+    _build._libs["silk_nsq"] = lib
+    try:
+        for del_dec in (True, False):
+            for S, (kernel, args, kw) in _kernel_calls(del_dec, dev).items():
+                kernel(*args, **kw)
+                buf = torch.zeros((S, 4, PROBE_SLOTS), dtype=torch.int64,
+                                  device=dev)
+                torch.cuda.synchronize()
+                assert lib.nsq_probe_set(buf.data_ptr()) == 0
+                kernel(*args, **kw)
+                torch.cuda.synchronize()
+                assert lib.nsq_probe_set(None) == 0
+                cyc = buf.cpu().numpy().astype(np.float64) / 320.0
+                out[f"{'del_dec' if del_dec else 'single'}_S{S}"] = {
+                    f"warp{w}": {name: float(cyc[:, w, i].mean())
+                                 for i, name in enumerate(PROBE_PARTS)}
+                    for w in range(4)}
+    finally:
+        if real is None:
+            _build._libs.pop("silk_nsq")
+        else:
+            _build._libs["silk_nsq"] = real
+        shutil.rmtree(tmp)
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--child-probe", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--target", choices=("steps", "nsq"), default="steps",
                     help="the decode steps or one quantizer dispatch")
     ap.add_argument("--trees", help="comma-separated checkouts")
     ap.add_argument("--order", help="comma-separated indices into --trees")
+    ap.add_argument("--probe", default="",
+                    help="nsq: comma-separated indices into --trees to "
+                    "probe")
     ap.add_argument("--out", help="file for the JSON lines")
     args = ap.parse_args()
-    if args.child:
+    if args.child or args.child_probe:
         sys.path.insert(0, os.getcwd())
-        child = _nsq_child if args.target == "nsq" else _steps_child
+        child = (_probe_child if args.child_probe else
+                 _nsq_child if args.target == "nsq" else _steps_child)
         print(json.dumps(child()), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
@@ -187,9 +359,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
     lines = []
-    for i in order:
+    probes = [int(i) for i in args.probe.split(",") if i]
+    if probes and args.target != "nsq":
+        ap.error("--probe takes --target nsq")
+    for i, mode in [(i, "--child") for i in order] + [
+            (i, "--child-probe") for i in probes]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", "--target", args.target],
+                              mode, "--target", args.target],
                              cwd=trees[i], capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stdout + res.stderr)
