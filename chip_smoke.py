@@ -20,9 +20,11 @@ thing if any module of mousiki_tpu is loaded):
      (csrc/band_assembly.cu), the comb filter kernel
      (csrc/comb_filter.cu), the concealment's row kernel
      (csrc/plc_rows.cu), the two SILK quantizer kernels
-     (csrc/silk_nsq.cu, with ptxas's report on their registers and
-     spills from a compile of its own) and the device SILK synthesis
-     kernel (csrc/silk_synthesis.cu), each source with its build time;
+     (csrc/silk_nsq.cu) and the device SILK synthesis kernel
+     (csrc/silk_synthesis.cu), each source with its build time, and
+     ptxas's report on the quantizers' and the synthesis kernel's
+     registers, stack, spills and shared memory from compiles of their
+     own;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -156,12 +158,16 @@ thing if any module of mousiki_tpu is loaded):
      frames in; the plain version carries its own state), and 12 carried
      frames of silk_synthesis_cases.py's seeded 12 kHz streams (voiced and
      unvoiced, interpolation on and off, lags 18 to 216 and per subframe,
-     chunks that straddle subframes); then the kernel's device time
-     (torch.profiler) on each, and of one stream alone (the chain), each
-     beside its bound (every parameter and state element read once, the
-     outputs written once, over HBM bandwidth, against the float
-     operations these streams need over the fp32 peak), the plain
-     version's device time and a call's wall time;
+     chunks that straddle subframes); the first call of each of these
+     and one voiced, interpolated stream alone (the chain) at 16, 12 and
+     8 kHz launched 8 times on the same inputs, every launch bit-equal to
+     the host build of the kernel's arithmetic (its two warps hand work
+     to each other: a race would show as a launch that differs); then
+     the kernel's device time (torch.profiler) on each, each beside its
+     bound (every parameter and state element read once, the outputs
+     written once, over HBM bandwidth, against the float operations these
+     streams need over the fp32 peak), the plain version's device time
+     and a call's wall time;
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
@@ -611,6 +617,13 @@ SYN_FRAMES = 12
 # path of phase 8 -> (the kernel's launches in its run, the row of phase
 # 3f that times its calls)
 SYN_LAUNCHES: dict = {}
+# launches of each of phase 3f's calls on the same inputs, each held
+# bit-equal to the host build; the rates of its one-stream calls (the
+# chain); the kernel's registers, stack, spills and shared memory as
+# ptxas reports them (phase 2)
+SYN_REPEATS = 8
+SYN_CHAIN_KHZ = (16, 12, 8)
+SYN_PTXAS: dict = {}
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -684,6 +697,7 @@ def phase_build():
         nsq = pool.submit(_timed, silk_nsq.build_kernel)
         nsq_ptxas = pool.submit(_build.ptxas_info, "silk_nsq")
         syn = pool.submit(_timed, silk_syn.build_kernel)
+        syn_ptxas = pool.submit(_build.ptxas_info, "silk_synthesis")
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
             leaf_kernels="csrc/pvq_leaves.cu",
@@ -697,6 +711,7 @@ def phase_build():
             silk_nsq_ptxas=_nsq_ptxas(nsq_ptxas.result()),
             silk_synthesis="csrc/silk_synthesis.cu",
             silk_synthesis_seconds=syn.result(),
+            silk_synthesis_ptxas=_syn_ptxas(syn_ptxas.result()),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
 
@@ -710,6 +725,16 @@ def _nsq_ptxas(entries: dict) -> dict:
               f"{sorted(entries)}")
         NSQ_PTXAS[name] = found[0]
     return NSQ_PTXAS
+
+
+def _syn_ptxas(entries: dict) -> dict:
+    """SYN_PTXAS from ptxas's report on csrc/silk_synthesis.cu; returns
+    it."""
+    found = [v for k, v in entries.items() if SYN_KERNEL[1] in k]
+    check(len(found) == 1, f"ptxas reports no one {SYN_KERNEL[1]}: "
+          f"{sorted(entries)}")
+    SYN_PTXAS.update(found[0])
+    return SYN_PTXAS
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -2291,6 +2316,29 @@ def syn_work(params, state, subfr_len: int) -> tuple[int, int]:
     return nbytes, ops
 
 
+def _syn_repeats(label, params, state, kw) -> int:
+    """The kernel launched SYN_REPEATS times on one call's inputs, every
+    launch's output and state planes bit-equal to the host build of its
+    arithmetic on CPU copies (strides kept); returns the launches."""
+    def cpu(t):
+        if t is None:
+            return None
+        return torch.empty_strided(t.shape, t.stride(),
+                                   dtype=t.dtype).copy_(t)
+
+    out, new = silk_syn.silk_synthesis_step_host(
+        silk_syn.SilkFrameParams(*map(cpu, params)),
+        silk_syn.SilkStreamState(*map(cpu, state)), **kw)
+    want = (out, *new)
+    for rep in range(SYN_REPEATS):
+        out, new = silk_syn.silk_synthesis_step(params, state, **kw)
+        check(all(torch.equal(a.cpu(), b)
+                  for a, b in zip((out, *new), want)),
+              f"{label}: launch {rep} of the SILK kernel differs from the "
+              "host build")
+    return SYN_REPEATS
+
+
 def _syn_times(label, params, state, kw, err: float) -> dict:
     """The kernel's device time on one call (torch.profiler), its bound,
     the plain version's device time; `err` the worst error of the
@@ -2313,7 +2361,9 @@ def _syn_times(label, params, state, kw, err: float) -> dict:
                chain_us_a_sample=ms * 1e3 / L,
                max_abs_err=float((out - want).abs().max()),
                worst_err_of_peak=err, voiced=int(params.voiced.sum()),
-               call_wall_ms=_wall_ms(run))
+               call_wall_ms=_wall_ms(run),
+               launches_equal_to_host_build=_syn_repeats(label, params,
+                                                         state, kw))
     row["bound_share"] = row["bound_ms"] / ms
     say(f"silk_synthesis_times_{label}", **row)
     return row
@@ -2328,8 +2378,10 @@ def phase_silk_synthesis_kernel(dev, mono):
     on the golden SILK streams (stream s starting s % 12 frames in, the
     plain version carrying its own state), and 12 carried frames of
     silk_synthesis_cases.py's seeded 12 kHz streams; then the kernel's
-    time at each, and of one stream alone (the chain), each beside its
-    bound and the plain version's device time. Returns {label: row}."""
+    time at each, and of one stream alone (the chain) at 16, 12 and 8
+    kHz, each beside its bound and the plain version's device time, and
+    each of these calls launched SYN_REPEATS times, every launch bit-equal
+    to the host build. Returns {label: row}."""
     S = S_MAIN
     mixed = partial(frame_batch, mono, S, packets=True)
 
@@ -2377,15 +2429,18 @@ def phase_silk_synthesis_kernel(dev, mono):
         got_state, want_state = got[1], want[1]
     held["seeded12"] = max(errs)
     table["seeded12"] = _syn_times("seeded12", *first, kw, held["seeded12"])
-    # one stream alone: a voiced 16 kHz stream with interpolated halves
-    frame = silk_synthesis_cases.frames(np.random.default_rng(20), 16, 1)[0]
-    one = silk_synthesis_cases.params(
-        {k: v[1:2] for k, v in frame.items()}, dev)
-    table["chain"] = _syn_times("chain_S1", one,
-                                silk_syn.init_silk_state(1, 16, dev),
-                                silk_synthesis_cases.step_kwargs(16), 0.0)
+    # one stream alone: a voiced stream with interpolated halves
+    for khz in SYN_CHAIN_KHZ:
+        frame = silk_synthesis_cases.frames(np.random.default_rng(20), khz,
+                                            1)[0]
+        one = silk_synthesis_cases.params(
+            {k: v[1:2] for k, v in frame.items()}, dev)
+        label = "chain_S1" if khz == 16 else f"chain{khz}_S1"
+        table[label] = _syn_times(
+            label, one, silk_syn.init_silk_state(1, khz, dev),
+            silk_synthesis_cases.step_kwargs(khz), 0.0)
     say("silk_synthesis_kernel", worst_err_of_peak=held, bar=SYN_TOL,
-        frames=SYN_FRAMES)
+        frames=SYN_FRAMES, repeats=SYN_REPEATS, ptxas=SYN_PTXAS)
     return table
 
 

@@ -11,18 +11,28 @@
 // loops of small torch ops (40 LTP chunks and 320 LPC samples a 20 ms frame
 // at 16 kHz, about 1,700 launches a step).
 //
-// What bounds it: one stream's chain of 320 dependent LPC steps (each needs
-// the one before) behind 40 dependent LTP chunks. Bytes (about 5.5 KB a
-// stream: its excitation, parameters, carried output and outputs) and
-// operations (about 2,000 a sample) are small; streams run at once, one
-// block a stream, so a launch takes about one stream's chain. The block is
-// one warp and keeps the stream in its shared memory (silk_synthesis.h's
-// SilkSynWork: the residual plane [re-whitened history | frame], 640
-// floats at 16 kHz, and the output). Its 32 threads share the scale and
-// the re-whitening (a thread a sample); a chunk's 8 LTP predictions run on
-// 8 threads, all read before any is written; the LPC chain runs on thread 0
-// with its 16-sample window in a ring of registers and no shuffles. Streams
-// share no arithmetic, so a stream's output does not depend on its batch.
+// What bounds it: one stream's chain of 320 dependent LPC steps (each needs the
+// one before). Bytes (about 5.5 KB a stream: its excitation, parameters,
+// carried output and outputs) and operations (about 2,000 a sample) are small;
+// streams run at once, one block a stream, so a launch takes about one stream's
+// chain. The block is two warps and keeps the stream in its shared memory
+// (silk_synthesis.h's SilkSynWork). Its 64 threads copy the inputs in
+// (cp.async, every word in flight at once), then share the scale and the
+// history's re-whitening (a thread a position, the history behind 16 zeros so
+// that the FIR reads straight). Then warp 1 runs the LTP chunk by chunk (up to
+// four chunks a step where the lags keep them apart) and hands its chunks to
+// warp 0 as a count (release / acquire, read only when the count last read
+// falls short); warp 0 runs the LPC chain in straight-line rounds of 16
+// samples, each reading its input as it starts. A sample's sum of 16 products
+// is eight pairs added in order: lane n % 8 of warp 0 forms sample n's pairs
+// 0-4 one a step as their samples come (no shuffle between steps), one shuffle
+// broadcasts the five-pair sum, which every lane takes two steps later, and
+// every lane adds pairs 5-7 and x itself, so that each sample's chain is one
+// multiply and three adds and the shuffle's latency is spread over two steps.
+// An interpolated frame's second-half LTP reads the first half's output
+// re-whitened: warp 1 forms it 8 samples at a time as warp 0 hands them over
+// (in such a frame only), only as far as its next chunks read. Streams share no
+// arithmetic, so a stream's output does not depend on its batch.
 //
 // Arithmetic is the plain version's, one rounding an operation, in
 // silk_synthesis.h (shared with the host build of the CPU tests).
@@ -34,7 +44,7 @@
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 2 * SILK_SYN_WARP;
 
 __global__ void __launch_bounds__(kThreads)
 silk_synthesis_kernel(SilkSynArgs g) {

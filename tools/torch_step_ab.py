@@ -1,9 +1,10 @@
-"""ms/step and kernel launches of the port's decode steps, or the host
-time of one SILK quantizer dispatch by span, at S = 256 on one GPU, for
-one or more checkouts of this repository, in turns.
+"""ms/step and kernel launches of the port's decode steps, the host
+time of one SILK quantizer dispatch by span, or the device SILK synthesis
+kernel alone, on one GPU, for one or more checkouts of this repository,
+in turns.
 
     python3 tools/torch_step_ab.py --trees DIR_A,DIR_B --order 0,1,1,0 \\
-        [--target steps|nsq] [--probe 0,1] [--out FILE]
+        [--target steps|nsq|silk_syn] [--probe 0,1] [--out FILE]
 
 Each entry of --order runs one child process in that checkout (its
 mousiki_tpu_torch and golden_streams.py), so that two versions of the
@@ -40,12 +41,22 @@ phase 3e of chip_smoke.py: the harvested calls and a copy of each voiced
 one without interpolation (nsq_cases.with_branches), tiled over S = 256
 lanes with every 17th unused, and spread over S = 1 (NSQ_KERNEL_WIDTHS).
 
---probe (nsq only; indices into --trees) then builds each of those
-checkouts' csrc/silk_nsq.cu with the clock hooks of this checkout's
-tools/nsq_probe.cu (a header without hooks of its own, as before they
-were added, gets them at the points of PARENT_HOOKS) and runs each kernel
-once at the widths above: the cycles a sample of each part of the sample
-loop (NsqProbePart), warp by warp.
+--target silk_syn: a child times silk_synthesis_step's kernel alone by
+CUDA events (as above) on the calls of phase 3f of chip_smoke.py: the
+first call of OpusStreamPipeline(256, channels=1,
+silk_synthesis="device") on the mono mix (the lane's strided views), of
+SilkStreamPipeline(256, synthesis="device") at 16 and 8 kHz on the golden
+SILK streams (stream s at frame s % 12), the first frame of
+silk_synthesis_cases.py's seeded 12 kHz streams at S = 256, and one
+voiced, interpolated stream alone (S = 1, its chain) at 16, 12 and 8 kHz.
+
+--probe (nsq and silk_syn; indices into --trees) then builds each of
+those checkouts' kernel source with the clock hooks of this checkout's
+tools/nsq_probe.cu or tools/silk_syn_probe.cu (a header without hooks of
+its own, as before they were added, gets them at the points of
+PARENT_HOOKS or SYN_PARENT_HOOKS) and runs each kernel once on the calls
+above: the cycles a sample of each part (NsqProbePart, SilkSynProbePart),
+warp by warp.
 
 Prints one JSON line a child and writes them all to FILE. Needs a GPU: a
 child fails without one.
@@ -97,6 +108,32 @@ PARENT_HOOKS = (
     ("    g.seed_used[s] = st.seed_init;\n  }\n", 0,
      "NSQ_PROBE(9); NSQ_PROBE_END();"),
 )
+# the SILK synthesis probe's parts (csrc/silk_synthesis.h
+# SilkSynProbePart, in its order) and slots a warp (tools/silk_syn_probe.cu
+# kSlots, kWarps)
+SYN_PROBE_PARTS = ("loads", "whiten", "ltp", "lpc", "interp", "wait",
+                   "out")
+SYN_PROBE_SLOTS, SYN_PROBE_WARPS = 8, 4
+# The hooks a silk_synthesis.h without SILK_SYN_PROBE hooks (the header of
+# the first kernel, one warp a stream, the parts one after another behind
+# barriers) gets for the probe, as PARENT_HOOKS: thread 0's record holds
+# each part with the barrier after it (the LPC chain runs on thread 0).
+SYN_PARENT_HOOKS = (
+    ("  const float ltp_scale = g.ltp_scale[s * st[kSynLtpScale]];\n", 0,
+     "SILK_SYN_PROBE_BEGIN();"),
+    ("  for (int i = t; i < H; i += nt) w.hist[i] = hist[i];\n"
+     "  SILK_SYN_SYNC();\n", 0, "SILK_SYN_PROBE(0);"),
+    ("ltp_scale);\n  SILK_SYN_SYNC();\n", 0, "SILK_SYN_PROBE(1);"),
+    ("H + half, nb, sl, t,\n               nt);\n", 0,
+     "SILK_SYN_PROBE(2);"),
+    ("w.y, half);\n  SILK_SYN_SYNC();\n", 0, "SILK_SYN_PROBE(3);"),
+    ("w.a[1], i);\n    SILK_SYN_SYNC();\n  }\n", 0, "SILK_SYN_PROBE(4);"),
+    ("H + half, H + L, nb, sl, t, nt);\n", 0, "SILK_SYN_PROBE(2);"),
+    ("L - half);\n  SILK_SYN_SYNC();\n", 0, "SILK_SYN_PROBE(3);"),
+    ("w.y[L - 1 - k];\n", 0, "SILK_SYN_PROBE(6); SILK_SYN_PROBE_END();"),
+)
+# the rates of the one-stream calls (the chain) of --target silk_syn
+SYN_CHAINS = (16, 12, 8)
 NSQ_SPANS = ("nsq.h2d", "nsq.quantize", "nsq.d2h")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
@@ -261,9 +298,10 @@ def _event_us(fn) -> float:
     raise SystemExit("the kernel calls were not queued before the card woke")
 
 
-def hooked(src: str) -> str:
-    """A silk_nsq.h without clock hooks with PARENT_HOOKS added."""
-    for anchor, nth, hook in PARENT_HOOKS:
+def hooked(src: str, hooks=PARENT_HOOKS) -> str:
+    """A header without clock hooks with `hooks` (PARENT_HOOKS for
+    silk_nsq.h, SYN_PARENT_HOOKS for silk_synthesis.h) added."""
+    for anchor, nth, hook in hooks:
         at = -1
         for _ in range(nth + 1):
             at = src.index(anchor, at + 1)
@@ -278,7 +316,6 @@ def _probe_child() -> dict:
     sample of each part, warp by warp (the mean over the streams)."""
     import ctypes
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -288,21 +325,10 @@ def _probe_child() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     dev = torch.device("cuda", 0)
-    flags = [_build.nvcc_path(), *_build.NVCC_FLAGS]
-    tmp = tempfile.mkdtemp()
-    header = open(os.path.join(_build.CSRC, "silk_nsq.h")).read()
-    shutil.copy(os.path.join(_build.CSRC, "silk_nsq.cu"), tmp)
-    with open(os.path.join(tmp, "silk_nsq.h"), "w") as fh:
-        fh.write(header if "NSQ_PROBE(" in header else hooked(header))
-    lib_path = os.path.join(tmp, "libnsq_probe.so")
-    res = subprocess.run([*flags, "-I", tmp, "-o", lib_path,
-                          os.path.join(HERE, "tools", "nsq_probe.cu")],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(res.stderr)
+    lib, added, tmp = _probe_lib("silk_nsq", "silk_nsq.h", "nsq_probe",
+                                 PARENT_HOOKS)
     out = {"tree": os.getcwd(), "device": torch.cuda.get_device_name(dev),
-           "hooks_added": "NSQ_PROBE(" not in header}
-    lib = ctypes.CDLL(lib_path)
+           "hooks_added": added}
     lib.nsq_probe_set.argtypes = [ctypes.c_void_p]
     real = _build._libs.get("silk_nsq")
     _build._libs["silk_nsq"] = lib
@@ -331,24 +357,178 @@ def _probe_child() -> dict:
     return out
 
 
+def _strided_copy(t):
+    """A copy of t with its strides (a view of a wider plane stays one)."""
+    import torch
+    if t is None:
+        return None
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def _syn_calls(dev) -> dict:
+    """{label: (params, state, keywords)} of silk_synthesis_step on
+    chip_smoke.py phase 3f's calls (see --target silk_syn): a pipeline's
+    first call as the pipeline makes it, strides kept."""
+    import numpy as np
+
+    import mousiki_tpu_torch.pipeline as pipeline_mod
+    import silk_synthesis_cases as cases
+    from golden_streams import frame_batch, load_mono_mix
+    from mousiki_tpu_torch.ops import silk_synthesis as ss
+    from mousiki_tpu_torch.pipeline import (OpusStreamPipeline,
+                                            SilkStreamPipeline)
+    mono = load_mono_mix()
+    out = {}
+    step = pipeline_mod.silk_synthesis_step
+
+    def first(label, pipe, batch):
+        def grab(params, state, **kw):
+            out.setdefault(label, (
+                ss.SilkFrameParams(*map(_strided_copy, params)),
+                ss.SilkStreamState(*map(_strided_copy, state)), kw))
+            return step(params, state, **kw)
+        pipeline_mod.silk_synthesis_step = grab
+        try:
+            pipe.step(batch)
+        finally:
+            pipeline_mod.silk_synthesis_step = step
+
+    first("mixed_lane", OpusStreamPipeline(
+        S, channels=1, silk_synthesis="device", device=dev),
+        frame_batch(mono, S, 0, packets=True))
+    for khz, k in ((16, 1), (8, 2)):
+        first(f"silk{khz}", SilkStreamPipeline(
+            S, khz, synthesis="device", device=dev),
+            [mono[k].payloads[s % 12] for s in range(S)])
+    frame = cases.frames(np.random.default_rng(19), 12, 1, S)[0]
+    out["seeded12"] = (cases.params(frame, dev),
+                       ss.init_silk_state(S, 12, dev),
+                       cases.step_kwargs(12))
+    for khz in SYN_CHAINS:
+        frame = cases.frames(np.random.default_rng(20), khz, 1)[0]
+        out[f"chain{khz}_S1"] = (
+            cases.params({k: v[1:2] for k, v in frame.items()}, dev),
+            ss.init_silk_state(1, khz, dev), cases.step_kwargs(khz))
+    return out
+
+
+def _syn_child() -> dict:
+    """This checkout's SILK synthesis kernel alone by CUDA events on
+    _syn_calls, µs a call."""
+    import torch
+
+    sys.path.insert(1, HERE)
+    from mousiki_tpu_torch.ops import silk_synthesis as ss
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    dev = torch.device("cuda", 0)
+    out = {"tree": os.getcwd(), "device": torch.cuda.get_device_name(dev),
+           "kernel_us": {}}
+    for label, (params, state, kw) in _syn_calls(dev).items():
+        out["kernel_us"][label] = _event_us(
+            partial(ss.silk_synthesis_step, params, state, **kw))
+    return out
+
+
+def _probe_lib(source: str, header: str, probe: str, hooks):
+    """This checkout's csrc/<source>.cu built with the clock hooks of
+    tools/<probe>.cu (the header given PARENT_HOOKS-style `hooks` where it
+    has none); returns (library, hooks added, the temporary directory)."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    from mousiki_tpu_torch.ops import _build
+    flags = [_build.nvcc_path(), *_build.NVCC_FLAGS]
+    tmp = tempfile.mkdtemp()
+    text = open(os.path.join(_build.CSRC, header)).read()
+    mark = "SILK_SYN_PROBE(" if probe == "silk_syn_probe" else "NSQ_PROBE("
+    shutil.copy(os.path.join(_build.CSRC, f"{source}.cu"), tmp)
+    with open(os.path.join(tmp, header), "w") as fh:
+        fh.write(text if mark in text else hooked(text, hooks))
+    lib_path = os.path.join(tmp, f"lib{probe}.so")
+    res = subprocess.run([*flags, "-I", tmp, "-o", lib_path,
+                          os.path.join(HERE, "tools", f"{probe}.cu")],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(res.stderr)
+    return ctypes.CDLL(lib_path), mark not in text, tmp
+
+
+def _syn_probe_child() -> dict:
+    """This checkout's SILK synthesis kernel built with the clock hooks of
+    tools/silk_syn_probe.cu, one call on each of _syn_calls: cycles a
+    sample of each part, warp by warp (the mean over the streams; warps
+    that record nothing left out)."""
+    import ctypes
+    import shutil
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(1, HERE)
+    from mousiki_tpu_torch.ops import _build
+    from mousiki_tpu_torch.ops import silk_synthesis as ss
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    dev = torch.device("cuda", 0)
+    lib, added, tmp = _probe_lib("silk_synthesis", "silk_synthesis.h",
+                                 "silk_syn_probe", SYN_PARENT_HOOKS)
+    out = {"tree": os.getcwd(), "device": torch.cuda.get_device_name(dev),
+           "hooks_added": added}
+    lib.silk_syn_probe_set.argtypes = [ctypes.c_void_p]
+    real = _build._libs.get("silk_synthesis")
+    _build._libs["silk_synthesis"] = lib
+    try:
+        for label, (params, state, kw) in _syn_calls(dev).items():
+            S, L = params.exc.shape
+            ss.silk_synthesis_step(params, state, **kw)
+            buf = torch.zeros((S, SYN_PROBE_WARPS, SYN_PROBE_SLOTS),
+                              dtype=torch.int64, device=dev)
+            torch.cuda.synchronize()
+            assert lib.silk_syn_probe_set(buf.data_ptr()) == 0
+            ss.silk_synthesis_step(params, state, **kw)
+            torch.cuda.synchronize()
+            assert lib.silk_syn_probe_set(None) == 0
+            cyc = buf.cpu().numpy().astype(np.float64) / L
+            out[label] = {
+                f"warp{w}": {name: float(cyc[:, w, i].mean())
+                             for i, name in enumerate(SYN_PROBE_PARTS)}
+                for w in range(SYN_PROBE_WARPS) if cyc[:, w].any()}
+    finally:
+        if real is None:
+            _build._libs.pop("silk_synthesis")
+        else:
+            _build._libs["silk_synthesis"] = real
+        shutil.rmtree(tmp)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--child-probe", action="store_true",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--target", choices=("steps", "nsq"), default="steps",
-                    help="the decode steps or one quantizer dispatch")
+    ap.add_argument("--target", choices=("steps", "nsq", "silk_syn"),
+                    default="steps",
+                    help="the decode steps, one quantizer dispatch or the "
+                    "SILK synthesis kernel alone")
     ap.add_argument("--trees", help="comma-separated checkouts")
     ap.add_argument("--order", help="comma-separated indices into --trees")
     ap.add_argument("--probe", default="",
-                    help="nsq: comma-separated indices into --trees to "
-                    "probe")
+                    help="nsq, silk_syn: comma-separated indices into "
+                    "--trees to probe")
     ap.add_argument("--out", help="file for the JSON lines")
     args = ap.parse_args()
     if args.child or args.child_probe:
         sys.path.insert(0, os.getcwd())
-        child = (_probe_child if args.child_probe else
-                 _nsq_child if args.target == "nsq" else _steps_child)
+        if args.child_probe:
+            child = (_syn_probe_child if args.target == "silk_syn"
+                     else _probe_child)
+        else:
+            child = {"steps": _steps_child, "nsq": _nsq_child,
+                     "silk_syn": _syn_child}[args.target]
         print(json.dumps(child()), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
@@ -360,8 +540,8 @@ def main() -> int:
     print(card.strip(), flush=True)
     lines = []
     probes = [int(i) for i in args.probe.split(",") if i]
-    if probes and args.target != "nsq":
-        ap.error("--probe takes --target nsq")
+    if probes and args.target == "steps":
+        ap.error("--probe takes --target nsq or silk_syn")
     for i, mode in [(i, "--child") for i in order] + [
             (i, "--child-probe") for i in probes]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
