@@ -20,11 +20,12 @@ thing if any module of mousiki_tpu is loaded):
      (csrc/band_assembly.cu), the comb filter kernel
      (csrc/comb_filter.cu), the concealment's row kernel
      (csrc/plc_rows.cu), the two SILK quantizer kernels
-     (csrc/silk_nsq.cu) and the device SILK synthesis kernel
-     (csrc/silk_synthesis.cu), each source with its build time, and
-     ptxas's report on the quantizers' and the synthesis kernel's
-     registers, stack, spills and shared memory from compiles of their
-     own;
+     (csrc/silk_nsq.cu), the device SILK synthesis kernel
+     (csrc/silk_synthesis.cu) and the neural recovery's two kernels
+     (csrc/fargan.cu, csrc/rdovae.cu), each source with its build time,
+     and ptxas's report on the quantizers', the synthesis kernel's and
+     the neural kernels' registers, stack, spills and shared memory from
+     compiles of their own;
   3. kernel vs plain: deemphasis_pcm against deemphasis_pcm_reference on
      the card at (S, C, N) = (256, 2, 960) and (256, 1, 960), the shapes
      the CELT and the mixed main path give it, (32, 2, 960), the
@@ -168,6 +169,23 @@ thing if any module of mousiki_tpu is loaded):
      written once, over HBM bandwidth, against the float operations these
      streams need over the fp32 peak), the plain version's device time
      and a call's wall time;
+ 3g. the neural recovery's two kernels (models/fargan.conceal_frames:
+     PitchDNN and FARGAN over a call's frames, one launch; models/dred.
+     decode_qframes: the RDOVAE decoder over a call's qframes, one launch)
+     against their plain versions on the card, on the port's seeded
+     models: conceal_frames at S = 64 and 256 on bench.py's features, 5
+     calls with the state carried, and DeepPlcState.conceal's route
+     (PitchDNN once, two frames) at S = 1; decode_qframes on phase 16's
+     DRED payloads and on one stream alone; each call one launch, integer
+     periods equal or flipped only within 1e-3 of an integer, PCM and
+     state within 1e-4 (features within 1e-4 of their scale), bit-equal to
+     the host build of the kernel's arithmetic (every stream, but 8 of
+     256 past the first call), a stream bit-equal alone at S = 1; then
+     each call's kernel device time (torch.profiler and CUDA events)
+     beside its bound (the weights, inputs and state read once, outputs
+     written once over HBM bandwidth, against 2 operations a weight a row
+     applied over the fp32 peak), the plain version's device time and
+     both calls' wall time; ptxas's report of both kernels in phase 2;
   4. main path: CeltStreamPipeline(256, channels=2, use_plan=True) with the
      serving plan profile; stream s plays golden stereo stream s % 3 for
      12 frames; every stream within 2e-4 of the golden PCM, and the kernel
@@ -280,11 +298,13 @@ thing if any module of mousiki_tpu is loaded):
      CPU in this run: every PitchDNN period within 1e-3 of the CPU's, an
      integer period that differs (a flip) accepted only where the CPU's
      float lies within 1e-3 of an integer (each flip printed), the PCM
-     within 1e-4 in every lane without a flip, all finite;
+     within 1e-4 in every lane without a flip, all finite; the
+     concealment kernel launched once a call (counts reset just before);
  16. RDOVAE decode: process() at S = 64 on DRED payloads (dred_encode of
      seeded latents, 26 a stream, synthetic stats, several levels) against
      the CPU port within 1e-4 * max|features|, and two rows against the
-     per-stream opus_dred_process on the card;
+     per-stream opus_dred_process on the card; the RDOVAE kernel launched
+     once by process and once by each opus_dred_process;
  17. DRED encode: the copied OpusEncoder(48000, 1) at 24 kbit/s with
      set_dred_duration(40), its RDOVAE encoder on the card (the default:
      no model given), 2 streams x 10 frames; DRED parses from at least 8
@@ -297,6 +317,8 @@ thing if any module of mousiki_tpu is loaded):
      the windows; 3 windows here, not 6, to save time), the same at
      S = 256, the ms of a process call at S = 64 (median of 3), one
      profiled conceal call at each width and one profiled process call;
+     the kernel launched once a call in each (counts reset just before),
+     at most 10 launches in a profiled call at S = 64;
  19. Python-host CELT: CeltStreamPipeline(32, 2, use_native=False), one
      copied Python CeltDecoder a stream in front of the device synthesis,
      stream s playing golden stereo stream s % 3 for 12 frames; every
@@ -318,7 +340,8 @@ thing if any module of mousiki_tpu is loaded):
      one more lost frame concealed without DRED; features and PCM within
      1e-4 of the CPU's, each pitch period flip printed and excused only
      within 1e-3 of an integer; the launches of one deep-PLC
-     decode(None, 960);
+     decode(None, 960); the RDOVAE kernel launched once (dred_process) and
+     the concealment kernel once a concealed frame;
  22. the lockstep decoder (ops/celt_lockstep_top.lockstep_synthesis_step:
      symbol stages, band-tree walk, plan emission, executor and synthesis,
      all on the card; the host only pads the packets): S = 256 stereo
@@ -396,8 +419,10 @@ launches beside phase 3d's times at that width, with chain_ms the time
 of one row alone; for the quantizers, one row for each path that runs
 them (phases 12, 13 and 13b), its launches beside phase 3e's times at
 S = 256; for the SILK synthesis, one row for each device-SILK path of
-phase 8, its launches beside phase 3f's times on that path's calls);
-the last line is {"ok": true, "device": {...}}. The "run" line holds the wall
+phase 8, its launches beside phase 3f's times on that path's calls; for
+the neural kernels, one row for each path of phases 15, 16, 18 and 21
+that runs one, its launches beside phase 3g's times of a call of that
+shape); the last line is {"ok": true, "device": {...}}. The "run" line holds the wall
 seconds of every phase. With --out DIR, everything
 measured also goes to DIR/chip_smoke.json, and the profiler's tables of
 the profiled steps to DIR/profile_*.txt.
@@ -624,6 +649,26 @@ SYN_LAUNCHES: dict = {}
 SYN_REPEATS = 8
 SYN_CHAIN_KHZ = (16, 12, 8)
 SYN_PTXAS: dict = {}
+# the neural recovery's two kernels: the reference's scan each replaces,
+# the kernel's symbol, its source
+NEURAL_KERNELS = {
+    "fargan_conceal": ("mousiki_tpu/parallel/deep_recovery.py:63",
+                       "fargan_conceal_kernel",
+                       "mousiki_tpu_torch/csrc/fargan.cu"),
+    "rdovae_decode": ("mousiki_tpu/parallel/deep_recovery.py:39",
+                      "rdovae_decode_kernel",
+                      "mousiki_tpu_torch/csrc/rdovae.cu"),
+}
+NEURAL_CALLS = 5                # carried conceal calls of phase 3g
+# streams of a conceal call at S = 256 held to the host build past the
+# first call (every stream of the first call and of each call at S = 64)
+NEURAL_HOST_STREAMS = 8
+# (path, kernel) -> (launches in the path's run, the row of phase 3g that
+# times a call of that shape)
+NEURAL_LAUNCHES: dict = {}
+# a conceal or process call at S = 64 makes at most this many launches
+NEURAL_MAX_LAUNCHES = 10
+NEURAL_PTXAS: dict = {}
 RESULTS: dict = {}
 OUT_DIR: str | None = None
 
@@ -684,7 +729,7 @@ def _timed(fn):
 
 
 def phase_build():
-    """g++ for the three host libraries and nvcc for the seven kernel
+    """g++ for the three host libraries and nvcc for the nine kernel
     sources, started together."""
     with ThreadPoolExecutor(max_workers=8) as pool:
         hosts = {name: pool.submit(_timed, partial(_build.build_host, name))
@@ -698,6 +743,10 @@ def phase_build():
         nsq_ptxas = pool.submit(_build.ptxas_info, "silk_nsq")
         syn = pool.submit(_timed, silk_syn.build_kernel)
         syn_ptxas = pool.submit(_build.ptxas_info, "silk_synthesis")
+        neural = {name: (pool.submit(_timed, build),
+                         pool.submit(_build.ptxas_info, name))
+                  for name, build in (("fargan", fargan.build_kernel),
+                                      ("rdovae", rdovae.build_kernel))}
         say("build", kernel="csrc/deemphasis.cu",
             kernel_seconds=kernel.result(),
             leaf_kernels="csrc/pvq_leaves.cu",
@@ -712,6 +761,10 @@ def phase_build():
             silk_synthesis="csrc/silk_synthesis.cu",
             silk_synthesis_seconds=syn.result(),
             silk_synthesis_ptxas=_syn_ptxas(syn_ptxas.result()),
+            **{f"{name}_seconds": built.result()
+               for name, (built, _) in neural.items()},
+            neural_ptxas=_neural_ptxas({name: info.result() for name, (_, info)
+                                        in neural.items()}),
             **{f"{name}_seconds": fut.result()
                for name, fut in hosts.items()})
 
@@ -735,6 +788,19 @@ def _syn_ptxas(entries: dict) -> dict:
           f"{sorted(entries)}")
     SYN_PTXAS.update(found[0])
     return SYN_PTXAS
+
+
+def _neural_ptxas(reports: dict) -> dict:
+    """NEURAL_PTXAS from ptxas's reports on csrc/fargan.cu and
+    csrc/rdovae.cu (by source), each kernel found by its symbol; returns
+    it."""
+    for (name, (_, symbol, _)), report in zip(NEURAL_KERNELS.items(),
+                                               reports.values()):
+        found = [v for k, v in report.items() if symbol in k]
+        check(len(found) == 1, f"ptxas reports no one {symbol}: "
+              f"{sorted(report)}")
+        NEURAL_PTXAS[name] = found[0]
+    return NEURAL_PTXAS
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -894,6 +960,26 @@ def _reset_launches() -> None:
     plc.reset_launches()
     silk_nsq.reset_launches()
     silk_syn.reset_launches()
+    fargan.reset_launches()
+    rdovae.reset_launches()
+
+
+def _neural_counts() -> dict:
+    """The launch counts of the neural recovery's two kernels."""
+    return {"fargan_conceal": fargan.conceal_frames_launches,
+            "rdovae_decode": rdovae.decode_qframes_launches}
+
+
+def _neural_launched(path: str, want: dict, rows: dict) -> dict:
+    """The neural kernels' launches in a path's run (counted from 0 just
+    before it) held to `want` ({kernel: launches}) and kept for the
+    kernels line beside phase 3g's row `rows[kernel]`."""
+    got = _neural_counts()
+    check(got == {**dict.fromkeys(got, 0), **want},
+          f"{path}: neural kernel launches {got}, {want} expected")
+    for name, n in want.items():
+        NEURAL_LAUNCHES[(path, name)] = (n, rows[name])
+    return got
 
 
 def _kernel_counts() -> dict:
@@ -2444,6 +2530,268 @@ def phase_silk_synthesis_kernel(dev, mono):
     return table
 
 
+# ------------------------------------------ the neural recovery kernels
+
+def _lanes(x, idx, cpu: bool = False):
+    """x (a tensor of streams, or a tuple or state of them) at the streams
+    idx (on the CPU where `cpu`)."""
+    if isinstance(x, torch.Tensor):
+        return x[idx].cpu() if cpu else x[idx]
+    items = [_lanes(v, idx, cpu) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+
+def _rdovae_flat(state):
+    """An RdovaeDecState as one (S, n) tensor: the GRU states, then each
+    conv's past inputs oldest first."""
+    return torch.cat([*state.gru_states, *(p for c in state.conv_states
+                                           for p in c.past)], dim=1)
+
+
+def conceal_work(model, pitch_model, S: int, F: int,
+                 hold: bool) -> tuple[int, int]:
+    """(bytes, operations) one conceal_frames call needs: both models'
+    weights, the features, the state and the flags read once, the PCM, the
+    periods and the new state written once; 2 operations a weight a row
+    applied: a frame's conditioning layers (the gain's dense once a frame,
+    as the kernel computes it), its subframe layers 4 times, PitchDNN once
+    a frame (once a call where `hold`). The activations and the element
+    work (under 1% of these) are left out."""
+    dims = fargan.layer_dims()
+    once = ("cond_fdense1", "cond_fconv1", "cond_fdense2", "cond_gain_dense")
+    frame = sum(4 ** (name not in once) * i * o for name, (i, o)
+                in dims.items())
+    pitch = sum(i * o for i, o in fargan.PITCH_DIMS)
+    ops = 2 * S * (F * frame + (1 if hold else F) * pitch)
+    weights = sum(p.numel() for m in (model, pitch_model)
+                  for p in m.parameters())
+    state = 256 + 256 + 3 * 128 + 1 + 64
+    nbytes = 4 * (weights + S * (20 * (1 if hold else F) + 1 + 2 * state
+                                 + F * (160 + 1)))
+    return nbytes, ops
+
+
+def rdovae_work(model, S: int, Q: int) -> tuple[int, int]:
+    """(bytes, operations) one decode_qframes call needs: the decoder's
+    weights and the packed rows read once, the features written once; 2
+    operations a weight a row applied: the initial state's two layers
+    once, the qframe's layers Q times (inactive qframes' outputs are
+    computed too). Activations left out."""
+    layers = rdovae.kernel_layers(model)
+    macs = [layer.weight.numel() for layer in layers]
+    ops = 2 * S * (sum(macs[:2]) + Q * sum(macs[2:]))
+    weights = sum(p.numel() for p in model.parameters())
+    nbytes = 4 * (weights + S * (rdovae.packed_width(Q) + Q * 80))
+    return nbytes, ops
+
+
+def _neural_row(label, kernel, run, plain, work, err, **extra) -> dict:
+    """One call's times on the card: the kernel's device time
+    (torch.profiler, and CUDA events), its bound, the plain version's
+    device time, both calls' host wall ms; `err` the worst error of the
+    calls held."""
+    nbytes, ops = work
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    ms = _device_ms(run, reps=10, match=NEURAL_KERNELS[kernel][1])
+    event_ms, queued = _event_ms(run, 10)
+    row = dict(ms=ms, event_ms=event_ms, event_queued=queued,
+               plain_ms=_device_ms(plain, reps=2, device_only=True),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, operations=ops, max_abs_err=err,
+               call_wall_ms=_wall_ms(run), plain_call_wall_ms=_wall_ms(plain),
+               **extra)
+    row["bound_share"] = row["bound_ms"] / ms
+    say(f"neural_times_{label}", **row)
+    return row
+
+
+def _conceal_held(label, got, want, flipped) -> float:
+    """A conceal_frames call of the kernel (got) against the plain version
+    on the same inputs (want): integer periods equal, or flipped only
+    within PERIOD_TOL of an integer (the lane is marked in `flipped` and
+    left out from then on); PCM within NEURAL_PCM_TOL and every state
+    field within NEURAL_PCM_TOL of its scale. Returns the worst PCM
+    error."""
+    pg, pc = got[1].cpu().numpy(), want[1].cpu().numpy()
+    for s, f in zip(*np.nonzero(pg.astype(np.int32) != pc.astype(np.int32))):
+        dist = float(abs(pc[s, f] - np.round(pc[s, f])))
+        print(f"[neural_kernels] {label}: period flip lane {s} frame {f} "
+              f"card {pg[s, f]} plain {pc[s, f]}", flush=True)
+        check(dist < PERIOD_TOL, f"{label}: period flip far from an "
+              f"integer ({dist})")
+        flipped[s] = True
+    check(bool(torch.isfinite(got[0]).all()), f"{label}: PCM not finite")
+    keep = torch.as_tensor(~flipped, device=got[0].device)
+
+    def worst(a, b) -> float:
+        d = (a - b).abs()[keep]
+        return float(d.max()) if d.numel() else 0.0
+
+    err = worst(got[0], want[0])
+    check(err <= NEURAL_PCM_TOL, f"{label}: PCM {err} from the plain "
+          "version")
+    for name, g, w in zip((*fargan.FarganState._fields, "pitch_state"),
+                          (*got[2], got[3]), (*want[2], want[3])):
+        if not w.numel():       # fwc0_mem: no history
+            continue
+        d = worst(g, w)
+        check(d <= NEURAL_PCM_TOL * max(1.0, float(w.abs().max())),
+              f"{label}: state {name} {d} from the plain version")
+    return err
+
+
+def _conceal_host_equal(label, cpu_models, state, feats, active, got,
+                        lanes, frames=None) -> int:
+    """The kernel's outputs (got) on the streams `lanes` bit-equal to the
+    host build's on CPU copies of those streams' inputs; returns the
+    streams checked."""
+    idx = torch.as_tensor(list(lanes))
+    host = fargan.conceal_frames_host(
+        *cpu_models, *_lanes(state, idx, cpu=True),
+        feats[idx].cpu(), None if active is None else active[idx].cpu(),
+        frames)
+    for a, b in zip((got[0], got[1], *got[2], got[3]),
+                    (host[0], host[1], *host[2], host[3])):
+        check(torch.equal(a[idx].cpu(), b), f"{label}: the kernel differs "
+              "from the host build")
+    return len(idx)
+
+
+def phase_neural_kernels(dev):
+    """The neural recovery's kernels against their plain versions on the
+    card, on the port's seeded models (FARGAN seed 2, PitchDNN 3, RDOVAE
+    decoder 1): conceal_frames at S = 64 and 256 on the bench's features,
+    NEURAL_CALLS calls with the state carried (kernel and plain version
+    each carrying its own), the DeepPlcState route at S = 1 (two calls of
+    320 samples), decode_qframes on _seeded_dreds(64) (lanes cut short at
+    different qframes) and on one stream alone. Each call: one launch,
+    within the bars of phase 15 (integer periods equal or flipped within
+    1e-3 of an integer, PCM and state within 1e-4) or 1e-4 of the
+    features' scale, bit-equal to the host build (every stream at S = 64
+    and 1 and in the first call at 256, NEURAL_HOST_STREAMS streams of
+    the others), a stream bit-equal alone at S = 1. Then each call's
+    device time beside its bound and the plain version's. Returns {label:
+    row}."""
+    t0 = time.perf_counter()
+
+    def seeded(seed, make, device):
+        return make(torch.Generator().manual_seed(seed), device=device)
+
+    fm, pm, dm = (seeded(2, fargan.random_model, dev),
+                  seeded(3, deep_plc.random_pitchdnn, dev),
+                  seeded(1, rdovae.random_dec, dev))
+    cpu_models = (seeded(2, fargan.random_model, "cpu"),
+                  seeded(3, deep_plc.random_pitchdnn, "cpu"))
+    table, held = {}, {}
+    for S in (S_NEURAL, 256):
+        feats = torch.as_tensor(_bench_features(S), device=dev)
+        first = state = plain = (fargan.init_state(fm, S),
+                                 torch.zeros(S, 64, device=dev))
+        flipped, errs, checked = np.zeros(S, bool), [], 0
+        for call in range(NEURAL_CALLS):
+            label = f"conceal S={S} call {call}"
+            fargan.reset_launches()
+            got = fargan.conceal_frames(fm, pm, *state, feats)
+            check(fargan.conceal_frames_launches == 1,
+                  f"{label}: {fargan.conceal_frames_launches} launches")
+            want = fargan.conceal_frames_reference(fm, pm, *plain, feats)
+            errs.append(_conceal_held(label, got, want, flipped))
+            lanes = (range(S) if S == S_NEURAL or call == 0
+                     else range(0, S, S // NEURAL_HOST_STREAMS))
+            checked += _conceal_host_equal(label, cpu_models, state, feats,
+                                           None, got, lanes)
+            one = fargan.conceal_frames(fm, pm, *_lanes(state, [17]),
+                                        feats[17:18])
+            check(all(torch.equal(a[0], b[17]) for a, b in zip(
+                (one[0], one[1], *one[2], one[3]),
+                (got[0], got[1], *got[2], got[3]))),
+                f"{label}: stream 17 alone differs from its batch")
+            state, plain = (got[2], got[3]), (want[2], want[3])
+        held[f"conceal_S{S}"] = max(errs)
+        table[f"conceal_S{S}"] = _neural_row(
+            f"conceal_S{S}", "fargan_conceal",
+            partial(fargan.conceal_frames, fm, pm, *first, feats),
+            partial(fargan.conceal_frames_reference, fm, pm, *first, feats),
+            conceal_work(fm, pm, S, 2, False), max(errs), shape=[S, 2],
+            calls=NEURAL_CALLS, lanes_with_flips=int(flipped.sum()),
+            stream_frames_equal_to_host_build=2 * checked)
+    # the DeepPlcState route: PitchDNN once, two frames a call
+    plc = deep_plc.DeepPlcState(fm, pm, device=dev)
+    plc.last_features = _bench_features(1)[0, 0]
+    f1 = torch.as_tensor(plc.last_features[None], device=dev)
+    plain = (fargan.init_state(fm, 1), torch.zeros(1, 64, device=dev))
+    flipped, errs = np.zeros(1, bool), []
+    for call in range(2):
+        before = (plc.fargan_state or fargan.init_state(fm, 1),
+                  plc.pitch_state)
+        fargan.reset_launches()
+        pcm = plc.conceal(2 * 160)
+        check(fargan.conceal_frames_launches == 1,
+              f"DeepPlcState.conceal: {fargan.conceal_frames_launches} "
+              "launches")
+        got = (torch.as_tensor(pcm[None], device=dev),
+               plc.last_period[:, None].expand(1, 2), plc.fargan_state,
+               plc.pitch_state)
+        want = fargan.conceal_frames_reference(fm, pm, *plain, f1, frames=2)
+        errs.append(_conceal_held(f"deep_plc call {call}", got, want,
+                                  flipped))
+        _conceal_host_equal(f"deep_plc call {call}", cpu_models, before, f1,
+                            None, got, [0], frames=2)
+        plain = (want[2], want[3])
+    table["deep_plc_S1"] = _neural_row(
+        "deep_plc_S1", "fargan_conceal",
+        partial(fargan.conceal_frames, fm, pm, fargan.init_state(fm, 1),
+                torch.zeros(1, 64, device=dev), f1, frames=2),
+        partial(fargan.conceal_frames_reference, fm, pm,
+                fargan.init_state(fm, 1), torch.zeros(1, 64, device=dev), f1,
+                frames=2),
+        conceal_work(fm, pm, 1, 2, True), max(errs), shape=[1, 2])
+    # the RDOVAE decode on seeded DRED payloads, and one stream alone
+    packed_np, n10 = rdovae.pack_latents(_seeded_dreds(S_NEURAL),
+                                         dred.synthetic_stats())
+    packed = torch.from_numpy(packed_np).to(dev)
+    Q = int(n10.max()) // 4
+    rdovae.reset_launches()
+    got, got_st = rdovae.decode_qframes(dm, packed, return_state=True)
+    check(rdovae.decode_qframes_launches == 1,
+          f"decode_qframes: {rdovae.decode_qframes_launches} launches")
+    want, want_st = rdovae.decode_qframes_reference(dm, packed,
+                                                    return_state=True)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= 1e-4 * scale,
+          f"RDOVAE features {err} from the plain version (bar 1e-4 * "
+          f"{scale})")
+    st_err = float((_rdovae_flat(got_st) - _rdovae_flat(want_st)).abs()
+                   .max())
+    check(st_err <= 1e-4 * max(1.0, float(_rdovae_flat(want_st).abs()
+                                          .max())),
+          f"RDOVAE final state {st_err} from the plain version")
+    host, host_st = rdovae.decode_qframes_host(
+        seeded(1, rdovae.random_dec, "cpu"), torch.from_numpy(packed_np),
+        return_state=True)
+    check(torch.equal(got.cpu(), host) and torch.equal(
+        _rdovae_flat(got_st).cpu(), _rdovae_flat(host_st)),
+        "the RDOVAE kernel differs from the host build")
+    for s in (0, 17, S_NEURAL - 1):
+        one = rdovae.decode_qframes(dm, packed[s:s + 1])
+        check(torch.equal(one[0], got[s]),
+              f"RDOVAE stream {s} alone differs from its batch")
+    for label, rows in (("rdovae_S64", packed), ("rdovae_S1", packed[:1])):
+        table[label] = _neural_row(
+            label, "rdovae_decode", partial(rdovae.decode_qframes, dm, rows),
+            partial(rdovae.decode_qframes_reference, dm, rows),
+            rdovae_work(dm, rows.shape[0], Q), err, shape=[rows.shape[0], Q],
+            qframes_active_min=int(n10.min()) // 4)
+    say("neural_kernels", worst_pcm_err=held, rdovae_err=err,
+        rdovae_bar=1e-4 * scale, rdovae_state_err=st_err,
+        bar=NEURAL_PCM_TOL, ptxas=NEURAL_PTXAS,
+        seconds=round(time.perf_counter() - t0, 2))
+    return table
+
+
 def phase_main_path(dev, streams):
     S, F = S_MAIN, 12
     pipe = CeltStreamPipeline(S, channels=2, use_plan=True, device=dev)
@@ -3260,6 +3608,7 @@ def phase_neural_conceal(dev):
     cpu = BatchedDeepRecovery(S, device="cpu")
     flips, flipped, worst_period = [], np.zeros(S, bool), 0.0
     got, want = [], []
+    _reset_launches()
     for k in range(calls):
         got.append(gpu.conceal(feats).cpu().numpy())
         want.append(cpu.conceal(feats).numpy())
@@ -3285,7 +3634,11 @@ def phase_neural_conceal(dev):
     check(bool((err[~flipped] <= NEURAL_PCM_TOL).all()),
           f"concealment PCM {err[~flipped].max()} from the CPU's in a lane "
           "without a period flip")
+    launches = _neural_launched("neural_conceal",
+                                {"fargan_conceal": calls},
+                                {"fargan_conceal": f"conceal_S{S}"})
     say("neural_conceal", streams=S, calls=calls, frames_a_call=2,
+        kernel_launches=launches,
         period_flips=len(flips), lanes_with_flips=int(flipped.sum()),
         worst_period_diff=worst_period,
         worst_pcm_err_no_flip=float(err[~flipped].max()),
@@ -3312,7 +3665,10 @@ def phase_rdovae_decode(dev):
     S = S_NEURAL
     dreds = _seeded_dreds(S)
     gpu = BatchedDeepRecovery(S, device=dev)
+    _reset_launches()
     feats, n10 = gpu.process(dreds)
+    launches = _neural_launched("rdovae_process", {"rdovae_decode": 1},
+                                {"rdovae_decode": "rdovae_S64"})
     want, want_n = BatchedDeepRecovery(S, device="cpu").process(dreds)
     check(bool((n10 == want_n).all()), "valid frame counts differ")
     check(bool(np.isfinite(feats).all()), "non-finite features")
@@ -3321,13 +3677,17 @@ def phase_rdovae_decode(dev):
     check(err <= 1e-4 * scale, f"features {err} from the CPU port's "
           f"(bar 1e-4 * {scale})")
     rows = {}
+    _reset_launches()
     for s in (0, S - 1):
         one = np.stack(dred.opus_dred_process(dreds[s],
                                               model=gpu.dec_model))
         d = float(np.abs(feats[s, feats.shape[1] - n10[s]:] - one).max())
         check(d <= 1e-4 * scale, f"row {s}: {d} from opus_dred_process")
         rows[f"row{s}_vs_opus_dred_process"] = d
+    one_launches = _neural_launched("opus_dred_process", {"rdovae_decode": 2},
+                                    {"rdovae_decode": "rdovae_S1"})
     say("rdovae_decode", streams=S, qframes=int(n10.max()) // 4,
+        kernel_launches=launches, opus_dred_process_launches=one_launches,
         qframes_min=int(n10.min()) // 4, worst_abs_err_vs_cpu=err,
         bar=1e-4 * scale, **rows)
     return dreds
@@ -3390,6 +3750,7 @@ def phase_neural_timing(dev, dreds):
     for S in (S_NEURAL, 256):
         rec = recs[S] = BatchedDeepRecovery(S, device=dev)
         feats = _bench_features(S)
+        _reset_launches()
         rec.conceal(feats)
         torch.cuda.synchronize()
         rates = []
@@ -3399,26 +3760,47 @@ def phase_neural_timing(dev, dreds):
                 rec.conceal(feats)
             torch.cuda.synchronize()
             rates.append(S * n_steps * 0.02 / (time.perf_counter() - t0))
+        launches = _neural_launched(
+            f"dred_recovery_x_s{S}", {"fargan_conceal": 1 + windows * n_steps},
+            {"fargan_conceal": f"conceal_S{S}"})
         say(f"timing_dred_recovery_x_s{S}", streams=S,
             realtime_x=float(np.median(rates)),
             realtime_x_windows=rates,
-            ms_per_call=S * 0.02 / float(np.median(rates)) * 1e3)
+            ms_per_call=S * 0.02 / float(np.median(rates)) * 1e3,
+            kernel_launches=launches)
     rec = recs[S_NEURAL]
     runs = []
+    _reset_launches()
     for _ in range(windows):
         t0 = time.perf_counter()
         rec.process(dreds)          # ends in its read-back
         runs.append((time.perf_counter() - t0) * 1e3)
+    launches = _neural_launched("process_timing_s64",
+                                {"rdovae_decode": windows},
+                                {"rdovae_decode": "rdovae_S64"})
     say("timing_process_S64", streams=S_NEURAL, ms_per_call=float(
-        np.median(runs)), ms_per_call_runs=runs)
+        np.median(runs)), ms_per_call_runs=runs, kernel_launches=launches)
+
+    def profiled(name, call, kernel):
+        """One profiled call: one launch of its kernel, and at S = 64 at
+        most NEURAL_MAX_LAUNCHES launches in all."""
+        before = _neural_counts()[kernel]
+        prof = _profile_step(call, name)
+        n = _neural_counts()[kernel] - before
+        check(n == 1, f"profiled {name}: {n} launches of {kernel}")
+        if name.endswith("S64"):
+            check(prof["launches"] <= NEURAL_MAX_LAUNCHES,
+                  f"profiled {name}: {prof['launches']} launches, at most "
+                  f"{NEURAL_MAX_LAUNCHES} expected")
+        say(f"profile_{name}", **prof, neural_kernel_launches=n)
+
     for S, r in recs.items():
         feats = _bench_features(S)
         _profile_step(lambda: r.conceal(feats))
-        say(f"profile_conceal_S{S}", **_profile_step(
-            lambda: r.conceal(feats), f"conceal_S{S}"))
+        profiled(f"conceal_S{S}", lambda: r.conceal(feats),
+                 "fargan_conceal")
     rec.process(dreds)
-    say("profile_process_S64", **_profile_step(lambda: rec.process(dreds),
-                                                "process_S64"))
+    profiled("process_S64", lambda: rec.process(dreds), "rdovae_decode")
 
 
 # ------------------------------------------------- the single-stream API
@@ -3549,6 +3931,7 @@ def phase_deep_plc(dev):
     card, host = _deep_decoder(dev), _deep_decoder("cpu")
     check(card.deep_plc.device.type == "cuda",
           f"deep PLC runs on {card.deep_plc.device}")
+    _reset_launches()
     flips, worst, conceal_ms = [], {"good": 0.0, "dred": 0.0,
                                     "plc": 0.0}, []
     flipped = False
@@ -3599,7 +3982,13 @@ def phase_deep_plc(dev):
     compare("plc", on_card(card.decode, None, FRAME),
             host.decode(None, FRAME))
     prof = _profile_step(lambda: card.decode(None, FRAME), "deep_plc_decode")
+    # one DRED decode, and one conceal launch a concealed frame: the two
+    # DRED frames, the plain loss and the profiled one
+    launches = _neural_launched(
+        "deep_plc", {"rdovae_decode": 1, "fargan_conceal": 4},
+        {"rdovae_decode": "rdovae_S1", "fargan_conceal": "deep_plc_S1"})
     say("deep_plc", packets=len(pkts), encode_seconds=encode_s,
+        kernel_launches=launches,
         dred_latents=parsed[0].nb_latents, feature_err=feat_err,
         feature_bar=1e-4 * scale, period_flips=len(flips),
         worst_pcm_err_good=worst["good"], worst_pcm_err_dred=worst["dred"],
@@ -3982,21 +4371,23 @@ def _entry_batch_decode(dev):
 
 @contextlib.contextmanager
 def _periods():
-    """The float pitch period of every PitchDNN call in the block, by the
-    type of device it ran on."""
+    """The float pitch period of every DeepPlcState.conceal in the block
+    (its one PitchDNN step: through the kernel on the card), by the type
+    of device it ran on."""
     seen = {"cuda": [], "cpu": []}
-    inner = deep_plc.compute_pitchdnn
+    inner = deep_plc.DeepPlcState.conceal
 
-    def recorded(model, state, features):
-        period, state = inner(model, state, features)
-        seen[model.device.type].append(float(period[0]))
-        return period, state
+    def recorded(self, n_samples):
+        out = inner(self, n_samples)
+        if self.fargan_model is not None:
+            seen[self.device.type].append(float(self.last_period[0]))
+        return out
 
-    deep_plc.compute_pitchdnn = recorded
+    deep_plc.DeepPlcState.conceal = recorded
     try:
         yield seen
     finally:
-        deep_plc.compute_pitchdnn = inner
+        deep_plc.DeepPlcState.conceal = inner
 
 
 def _entry_dred(dev):
@@ -4271,6 +4662,7 @@ def main() -> int:
     nsq_table = _phase("nsq_kernels", phase_nsq_kernels, dev, NSQ_WIDTHS)
     syn_table = _phase("silk_synthesis_kernel", phase_silk_synthesis_kernel,
                        dev, mono)
+    neural_table = _phase("neural_kernels", phase_neural_kernels, dev)
     _record_frames()
     _guard_plc()
     n_celt, _ = _phase("main_path", phase_main_path, dev, streams)
@@ -4411,6 +4803,18 @@ def main() -> int:
         # no PyTorch call computes an LTP and an order-16 IIR
         "library_ms": None}
         for path, (n, label) in SYN_LAUNCHES.items()]
+    # one row for each path of phases 15, 16, 18 and 21 that ran a neural
+    # kernel: its launches beside phase 3g's times of a call of that shape
+    kernels["kernels"] += [{
+        "name": name, "route": "cuda", "source": NEURAL_KERNELS[name][2],
+        "replaces": NEURAL_KERNELS[name][0], "path": path, "launches": n,
+        **{key: neural_table[label][key]
+           for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by")},
+        # no PyTorch call computes a FARGAN subframe chain or an RDOVAE
+        # qframe
+        "library_ms": None}
+        for (path, name), (n, label) in NEURAL_LAUNCHES.items()]
     say("plc_launches", **{f"{path}_S{S}_C{C}": v for (path, S, C), v
                            in sorted(PLC_LAUNCHES.items())})
     # the frame sizes the paths decoded, all among those 3c checked

@@ -31,11 +31,10 @@ from . import _device
 from .hostcodec.bitstream.extensions import extensions_parse
 from .hostcodec.bitstream.packet import parse_packet
 from .models import dred as M
-from .models.dred import (DRED_EXTENSION_ID, DRED_LATENT_DIM,
-                          DRED_NUM_FEATURES, DRED_STATE_DIM, DredStats,
-                          dec_init_state, decode_qframe, dred_encode,
-                          dred_parse, dequantize, enc_init_state,
-                          encode_dframe, q_level, synthetic_stats)
+from .models.dred import (DRED_EXTENSION_ID, DRED_NUM_FEATURES, DredStats,
+                          decode_qframes, dred_encode, dred_parse,
+                          enc_init_state, encode_dframe, pack_latents,
+                          synthetic_stats)
 from .models.lpcnet_features import FeatureExtractor
 from .ops.input_resampler import ArbitraryResampler
 
@@ -155,34 +154,24 @@ def opus_dred_process(dred: OpusDred, model=None,
                       stats: DredStats | None = None):
     """Run the RDOVAE decoder over the parsed latents; fills
     dred.features with chronological 10 ms feature vectors (dred.rs:509:
-    newest-to-oldest qframes, each emitting 4 reversed feature frames).
-    Runs on the model's device; without a model it is the synthetic
-    decoder (seed 1), on the GPU."""
+    newest-to-oldest qframes, each emitting 4 reversed feature frames),
+    all of them in one models/dred.decode_qframes call (one launch and
+    one read-back on the card). Runs on the model's device; without a
+    model it is the synthetic decoder (seed 1), on the GPU."""
     dev = _model_device(model)
     if model is None:
         model = M.random_dec(torch.Generator().manual_seed(1), device=dev)
     if stats is None:
         stats = synthetic_stats()
 
-    state_f = dequantize(dred.state_q,
-                         stats.state_scale[dred.q0])[:DRED_STATE_DIM]
-    state24 = np.zeros((1, 24), np.float32)    # padded as in the reference
-    state24[0, :DRED_STATE_DIM] = state_f
-    dstate = dec_init_state(model, torch.as_tensor(state24, device=dev))
-    # each transmitted latent covers 2 dframes = 4 x 10 ms feature frames
-    n10 = 4 * len(dred.latents_q)
-    feats = np.zeros((n10, DRED_NUM_FEATURES), np.float32)
-    pos = n10
-    for i, lq in enumerate(dred.latents_q):   # newest first
-        lvl = q_level(i, dred.q0, dred.dq)
-        lat = dequantize(lq, stats.latent_scale[lvl])[:DRED_LATENT_DIM]
-        lat24 = np.zeros((1, 24), np.float32)
-        lat24[0, :DRED_LATENT_DIM] = lat
-        out, dstate = decode_qframe(model, dstate,
-                                    torch.as_tensor(lat24, device=dev))
-        out = out[0].cpu().numpy().reshape(4, DRED_NUM_FEATURES)
-        # qframe output is newest-first; reverse into chronological order
-        feats[pos - 4:pos] = out[::-1]
-        pos -= 4
-    dred.features = [feats[i] for i in range(n10)]
+    packed, _ = pack_latents([dred], stats)
+    Q = dred.nb_latents
+    out = np.zeros((Q, 4, DRED_NUM_FEATURES), np.float32)
+    if Q:
+        out = decode_qframes(model, torch.from_numpy(packed).to(dev))[0]
+        out = out.cpu().numpy()
+    # each transmitted latent covers 2 dframes = 4 x 10 ms feature frames;
+    # a qframe's output is newest-first: reversed into chronological order
+    feats = out[::-1, ::-1].reshape(4 * Q, DRED_NUM_FEATURES)
+    dred.features = [feats[i] for i in range(4 * Q)]
     return dred.features

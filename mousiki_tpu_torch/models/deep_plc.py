@@ -5,7 +5,9 @@ Reference celt/deep_plc.rs (LpcNetPlcState:349,483): keep a feature
 history from the decoded output; on loss, synthesize audio with FARGAN
 from the last (or DRED-injected) features. PitchDNN (pitchdnn.rs:91)
 estimates the period driving FARGAN; `compute_pitchdnn` runs S streams at
-once, (S, 20) features in, (S,) periods out.
+once, (S, 20) features in, (S,) periods out. A concealment runs PitchDNN
+once and FARGAN's frames through fargan.conceal_frames (one kernel
+launch and one read-back a call on the card).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from torch import nn
 from torch.profiler import record_function
 
 from .. import _device
-from .fargan import init_state as fargan_init, synthesize_frame
+from .fargan import FARGAN_FRAME_SIZE, conceal_frames
+from .fargan import init_state as fargan_init
 from .lpcnet_features import FRAME_SIZE, FeatureExtractor
 from .nnet import ACTIVATION_TANH, Linear, dense, gru, random_linear
 
@@ -95,17 +98,14 @@ class DeepPlcState:
             return np.zeros(n_samples)
         if self.fargan_state is None:
             self.fargan_state = fargan_init(self.fargan_model, 1)
-        out = []
         feats = (self.fec_queue.pop(0) if self.fec_queue
                  else self.last_features)
         f = torch.as_tensor(np.asarray(feats, np.float32)[None, :],
                             device=self.device)
-        self.last_period, self.pitch_state = compute_pitchdnn(
-            self.pitch_model, self.pitch_state, f)
-        period = self.last_period.to(torch.int32)
-        while sum(len(o) for o in out) < n_samples:
-            pcm, self.fargan_state = synthesize_frame(
-                self.fargan_model, self.fargan_state, f, period)
-            out.append(pcm[0].cpu().numpy())
+        # PitchDNN once, its period and these features for every frame
+        pcm, periods, self.fargan_state, self.pitch_state = conceal_frames(
+            self.fargan_model, self.pitch_model, self.fargan_state,
+            self.pitch_state, f, frames=-(-n_samples // FARGAN_FRAME_SIZE))
+        self.last_period = periods[:, 0]
         self.loss_count += 1
-        return np.concatenate(out)[:n_samples]
+        return pcm[0].cpu().numpy()[:n_samples]

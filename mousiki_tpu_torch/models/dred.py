@@ -16,21 +16,29 @@ states/rdovae_decode_qframe; dred.rs:463 opus_dred_parse):
 
 Both networks run S streams at once: every tensor has a leading stream
 axis, and a single stream is S = 1, so there is one code path. The
+decoder's run over a call's qframes, the reference's compiled scan
+(mousiki_tpu/parallel/deep_recovery.py _rdovae_decode_batch), is
+`decode_qframes`: on the card one launch of a hand-written kernel
+(csrc/rdovae.cu); on the CPU its plain version
+`decode_qframes_reference`, a Python loop of decode_qframe. The
 transport below the networks is the reference's numpy code, unchanged, on
 the port's copy of the range coder (hostcodec/bitstream/entcode.py).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..hostcodec.bitstream.entcode import RangeDecoder, RangeEncoder
+from ..ops import _build
 from .nnet import (ACTIVATION_LINEAR, ACTIVATION_TANH, Linear, dense, glu,
-                   gru, load_linear, random_linear)
+                   gru, load_linear, pack_layers, random_linear, stream_rows)
 
 DRED_NUM_FEATURES = 20
 DRED_LATENT_DIM = 21
@@ -287,6 +295,233 @@ def decode_qframe(model: RdovaeDec, state: RdovaeDecState, latents24):
         buf = torch.cat([buf, y], dim=-1)
     out = dense(model.output, buf, ACTIVATION_LINEAR)
     return out, RdovaeDecState(tuple(gru_states), tuple(conv_states))
+
+
+def _where(mask, new, old):
+    """The state tree `new` where mask (S,) holds, else `old` (every state
+    tensor is (S, n))."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(mask[:, None], new, old)
+    items = [_where(mask, n, o) for n, o in zip(new, old)]
+    return type(new)(*items) if hasattr(new, "_fields") else tuple(items)
+
+
+# --- Q qframes of S streams: one hand kernel on the card ------------------
+
+# kernel launches made by `decode_qframes` (not by the plain version)
+decode_qframes_launches = 0
+
+_GRU_STATE = _DEC_GRU_OUT * _ENC_GRUS
+# each conv's input width, 192 to 704
+_CONV_IN = [n for kind, n, _ in _dec_in_sizes()[0] if kind == "conv"]
+# a final state's floats: the GRU states, then each conv's past inputs
+_STATE_WIDTH = _GRU_STATE + sum(d * n for n, d in zip(_CONV_IN,
+                                                      _CONV_DILATION))
+
+
+def reset_launches() -> None:
+    global decode_qframes_launches
+    decode_qframes_launches = 0
+
+
+def build_kernel() -> None:
+    """Compile and load the kernel now (it is otherwise built on first
+    launch)."""
+    _build.load("rdovae")
+
+
+def packed_width(n_qframes: int) -> int:
+    """The width of a packed row: Q latents of 24, the initial state's 24,
+    Q activity flags."""
+    return n_qframes * DRED_PADDED_LATENT_DIM + DRED_PADDED_STATE_DIM \
+        + n_qframes
+
+
+def pack_latents(dreds, stats) -> tuple:
+    """The packed rows of `decode_qframes` for S parsed DRED payloads
+    (OpusDred or None; dred.opus_dred_parse): each stream's dequantized
+    latents (newest first) and initial state, padded to 24, and its
+    activity flags, over Q = the most latents of any stream. Returns
+    (packed (S, 25 Q + 24) float32, n10 (S,) int32: 4 feature frames a
+    latent)."""
+    S = len(dreds)
+    Q = max((d.nb_latents for d in dreds if d is not None), default=0)
+    packed = np.zeros((S, packed_width(Q)), np.float32)
+    lat = packed[:, :Q * DRED_PADDED_LATENT_DIM].reshape(
+        S, Q, DRED_PADDED_LATENT_DIM)
+    st24 = packed[:, Q * DRED_PADDED_LATENT_DIM: packed_width(Q) - Q]
+    act = packed[:, packed_width(Q) - Q:]
+    n10 = np.zeros(S, np.int32)
+    for s, d in enumerate(dreds):
+        if d is None:
+            continue
+        st24[s, :DRED_STATE_DIM] = dequantize(
+            d.state_q, stats.state_scale[d.q0])[:DRED_STATE_DIM]
+        for i, lq in enumerate(d.latents_q):
+            lvl = q_level(i, d.q0, d.dq)
+            lat[s, i, :DRED_LATENT_DIM] = dequantize(
+                lq, stats.latent_scale[lvl])[:DRED_LATENT_DIM]
+            act[s, i] = 1.0
+        n10[s] = 4 * d.nb_latents
+    return packed, n10
+
+
+def _qframes(packed) -> int:
+    if packed.dim() != 2:
+        raise TypeError(f"packed must be (S, 25 Q + 24), got "
+                        f"{tuple(packed.shape)}")
+    Q, extra = divmod(packed.shape[1] - DRED_PADDED_STATE_DIM,
+                      DRED_PADDED_LATENT_DIM + 1)
+    if Q < 0 or extra:
+        raise TypeError(f"packed rows of {packed.shape[1]} floats are not "
+                        "25 Q + 24")
+    return Q
+
+
+def decode_qframes_reference(model: RdovaeDec, packed,
+                             return_state: bool = False):
+    """The plain version of `decode_qframes`: a Python loop of
+    decode_qframe over the qframes, the state frozen by torch.where where
+    a qframe is inactive."""
+    S = packed.shape[0]
+    Q = _qframes(packed)
+    lat = packed[:, :Q * DRED_PADDED_LATENT_DIM].reshape(
+        S, Q, DRED_PADDED_LATENT_DIM)
+    st24 = packed[:, Q * DRED_PADDED_LATENT_DIM:
+                  packed_width(Q) - Q]
+    active = packed[:, packed_width(Q) - Q:] > 0.5
+    state = dec_init_state(model, st24)
+    outs = []
+    for q in range(Q):
+        with record_function("rdovae.qframe"):
+            out, new_state = decode_qframe(model, state, lat[:, q])
+            state = _where(active[:, q], new_state, state)
+        outs.append(out)
+    feats = (torch.stack(outs, dim=1) if outs
+             else packed.new_zeros((S, 0, _DEC_OUTPUT)))
+    feats = feats.view(S, Q, 4, DRED_NUM_FEATURES)
+    return (feats, state) if return_state else feats
+
+
+def kernel_layers(model: RdovaeDec) -> list:
+    """The decoder's layers in the kernel's order (csrc/rdovae.h)."""
+    rounds = [layer for k in range(_ENC_GRUS)
+              for layer in (*model.grus[k], model.glus[k], model.convs[k])]
+    return [model.hidden_init, model.gru_init, model.dense1, *rounds,
+            model.output]
+
+
+def _kernel_dims() -> list:
+    sizes, total = _dec_in_sizes()
+    rounds = []
+    for (_, n_gru, _), (_, n_conv, _) in zip(sizes[0::2], sizes[1::2]):
+        rounds += [(n_gru, 3 * _DEC_GRU_OUT), (_DEC_GRU_OUT, 3 * _DEC_GRU_OUT),
+                   (_DEC_GRU_OUT, _DEC_GRU_OUT), (2 * n_conv, _DEC_CONV_OUT)]
+    return [(DRED_PADDED_STATE_DIM, _GDENSE1),
+            (_GDENSE1, _ENC_GRUS * _DEC_GRU_OUT),
+            (DRED_PADDED_LATENT_DIM, _DEC_DENSE1), *rounds,
+            (total, _DEC_OUTPUT)]
+
+
+def _state_from_flat(flat) -> RdovaeDecState:
+    """The kernel's final state rows (S, _STATE_WIDTH) as the plain
+    version's RdovaeDecState (views)."""
+    gru_states = tuple(flat[:, k * _DEC_GRU_OUT:(k + 1) * _DEC_GRU_OUT]
+                       for k in range(_ENC_GRUS))
+    at, convs = _GRU_STATE, []
+    for n, d in zip(_CONV_IN, _CONV_DILATION):
+        convs.append(DilatedConvState(tuple(
+            flat[:, at + i * n: at + (i + 1) * n] for i in range(d))))
+        at += d * n
+    return RdovaeDecState(gru_states, tuple(convs))
+
+
+_P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# each entry point's arguments: the packed decoder and its table, the
+# packed rows and their stream stride, S, Q, the outputs (and the CUDA
+# stream)
+_ARGTYPES = {
+    "mousiki_rdovae_decode": [_P, _P, _P, _I64, _INT, _INT, _P, _P, _P],
+    "rdovae_decode_host": [_P, _P, _P, _I64, _INT, _INT, _P, _P],
+}
+
+
+def _entry(lib, symbol: str):
+    fn = getattr(lib, symbol)
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _run(model: RdovaeDec, packed, return_state: bool, host: bool):
+    """One call through the kernel, on CUDA tensors, or through the host
+    build of its arithmetic, on CPU tensors (`host`)."""
+    Q = _qframes(packed)
+    dev = packed.device
+    if host != (dev.type == "cpu"):
+        raise ValueError(f"the {'host build' if host else 'kernel'} does "
+                         f"not take tensors on {dev}")
+    if packed.dtype != torch.float32 or dev != model.device:
+        raise TypeError(f"packed must be float32 on the model's "
+                        f"{model.device}, got {packed.dtype} on {dev}")
+    layers = kernel_layers(model)
+    got = [tuple(layer.weight.shape[::-1]) for layer in layers]
+    if got != _kernel_dims():
+        raise ValueError(f"the RDOVAE kernel takes the decoder's default "
+                         f"widths {_kernel_dims()}, got {got}")
+    packed = stream_rows(packed)
+    S = packed.shape[0]
+    out = torch.empty((S, Q, _DEC_OUTPUT), dtype=torch.float32, device=dev)
+    state = (torch.empty((S, _STATE_WIDTH), dtype=torch.float32, device=dev)
+             if return_state else None)
+    if S:
+        pk = pack_layers(model, layers)
+        args = (pk.weights.data_ptr(), pk.table.ctypes.data,
+                packed.data_ptr(), packed.stride(0), S, Q, out.data_ptr(),
+                0 if state is None else state.data_ptr())
+        if host:
+            symbol = "rdovae_decode_host"
+            rc = _entry(_build.load_header_host("rdovae"), symbol)(*args)
+        else:
+            symbol = "mousiki_rdovae_decode"
+            fn = _entry(_build.load("rdovae"), symbol)
+            with torch.cuda.device(dev):
+                rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{symbol} failed: "
+                               f"{'' if host else 'cuda error '}{rc}")
+    feats = out.view(S, Q, 4, DRED_NUM_FEATURES)
+    return (feats, _state_from_flat(state)) if return_state else feats
+
+
+def decode_qframes(model: RdovaeDec, packed, return_state: bool = False):
+    """The RDOVAE decode of S streams: packed (S, 25 Q + 24) float32 rows
+    of [Q latents of 24 (newest first) | the initial state's 24 | Q
+    activity flags (> 0.5)] -> features (S, Q, 4, 20), a qframe's 4 rows
+    newest first (and, with return_state, the final RdovaeDecState). A
+    stream's state advances only over its active qframes; every qframe's
+    features are written.
+
+    CPU tensors take `decode_qframes_reference`; CUDA tensors launch
+    rdovae_decode_kernel (csrc/rdovae.cu) once, and raise on a shape,
+    dtype, device or layer width the kernel does not take."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return decode_qframes_reference(model, packed, return_state)
+    if dev.type != "cuda":
+        raise ValueError(f"the RDOVAE decode runs on cpu or cuda, not {dev}")
+    out = _run(model, packed, return_state, host=False)
+    if packed.shape[0]:
+        global decode_qframes_launches
+        decode_qframes_launches += 1
+    return out
+
+
+def decode_qframes_host(model: RdovaeDec, packed,
+                        return_state: bool = False):
+    """`decode_qframes` on CPU tensors through the host build of the
+    kernel's arithmetic (csrc/rdovae.h), the streams one after another."""
+    return _run(model, packed, return_state, host=True)
 
 
 # ------------------------------------- transport (the reference's numpy code)

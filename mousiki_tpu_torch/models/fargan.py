@@ -10,10 +10,18 @@ The reference runs the output de-emphasis (y[n] = x[n] + 0.85 y[n-1]) as a
 40-step scan in every subframe. Here it is one strict-fp32 product with the
 40x40 lower-triangular matrix of 0.85^(n-k), built in float64, plus the
 carry times 0.85^(n+1): no per-sample loop.
+
+`conceal_frames` runs the concealment of a call's frames (each frame's
+PitchDNN period, then synthesize_frame), the reference's compiled scan
+(mousiki_tpu/parallel/deep_recovery.py _conceal_batch): on the card one
+launch of a hand-written kernel (csrc/fargan.cu), which runs the
+de-emphasis as the reference's recurrence; on the CPU its plain version
+`conceal_frames_reference`, a Python loop of the functions above.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -22,8 +30,10 @@ from torch import nn
 from torch.profiler import record_function
 
 from .. import _device
+from ..ops import _build
 from .nnet import (ACTIVATION_TANH, conv1d_step, dense, glu, gru, linear,
-                   load_linear_auto, random_linear)
+                   load_linear_auto, pack_layers, random_linear,
+                   stream_rows)
 
 FARGAN_CONT_SAMPLES = 320
 FARGAN_NB_SUBFRAMES = 4
@@ -186,6 +196,210 @@ def synthesize_frame(model: FarganModel, state: FarganState, features, period):
     return torch.cat(outs, dim=-1), state
 
 
+# --- the concealment's frames: one hand kernel on the card ---------------
+
+# kernel launches made by `conceal_frames` (not by the plain version)
+conceal_frames_launches = 0
+
+PITCH_LAYERS = ("dense_in", "gru_i", "gru_r", "dense_out")
+# PitchDNN's layers' (inputs, outputs): deep_plc.random_pitchdnn's
+PITCH_DIMS = ((NB_FEATURES, 64), (64, 192), (64, 192), (64, 1))
+
+
+def reset_launches() -> None:
+    global conceal_frames_launches
+    conceal_frames_launches = 0
+
+
+def build_kernel() -> None:
+    """Compile and load the kernel now (it is otherwise built on first
+    launch)."""
+    _build.load("fargan")
+
+
+def conceal_frames_reference(model: FarganModel, pitch_model, state:
+                             FarganState, pitch_state, feats, active=None,
+                             frames=None):
+    """The plain version of `conceal_frames`: Python loops of eager ops,
+    one compute_pitchdnn and one synthesize_frame a frame."""
+    # deep_plc imports this module; its PitchDNN is looked up at the call
+    from .deep_plc import compute_pitchdnn
+
+    if frames is not None:
+        f = feats
+        period, pitch_state = compute_pitchdnn(pitch_model, pitch_state, f)
+    pcm, periods = [], []
+    for k in range(feats.shape[1] if frames is None else frames):
+        if frames is None:
+            f = feats[:, k]
+            period, pitch_state = compute_pitchdnn(pitch_model, pitch_state,
+                                                   f)
+        out, state = synthesize_frame(model, state, f,
+                                      period.to(torch.int32))
+        pcm.append(out)
+        periods.append(period)
+    S = feats.shape[0]
+    pcm = (torch.cat(pcm, dim=1) if pcm
+           else feats.new_zeros((S, 0)))
+    periods = (torch.stack(periods, dim=1) if periods
+               else feats.new_zeros((S, 0)))
+    if active is not None:
+        pcm = pcm * active[:, None]
+    return pcm, periods, state, pitch_state
+
+
+# the kernel's state inputs, in FarganArg's order (csrc/fargan.h), by field
+_STATE_ARGS = ("pitch_buf", "cond_conv1_mem", "gru1", "gru2", "gru3",
+               "deemph")
+_P, _INT = ctypes.c_void_p, ctypes.c_int
+# each entry point's arguments: the two packed buffers and their tables,
+# the pointer array, the stride array, S, F, hold (and the CUDA stream)
+_ARGTYPES = {
+    "mousiki_fargan_conceal": [_P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
+                               _P],
+    "fargan_conceal_host": [_P, _P, _P, _P, _P, _P, _INT, _INT, _INT],
+}
+
+
+def _check_models(model: FarganModel, pitch_model) -> None:
+    """The layer widths the kernel takes (random_model's and from_blob's
+    defaults, deep_plc.random_pitchdnn's); raises on others."""
+    dims = layer_dims()
+    got = {name: tuple(getattr(model, name).weight.shape[::-1])
+           for name in LAYERS}
+    pitch = tuple(tuple(getattr(pitch_model, name).weight.shape[::-1])
+                  for name in PITCH_LAYERS)
+    if (got != dims or model.cond_pembed.shape[1] != 12
+            or pitch != PITCH_DIMS):
+        raise ValueError(
+            "the concealment kernel takes FARGAN at cond 256, GRU 128, "
+            "embedding 12, no fwc0 history, and PitchDNN 20-64-1; got "
+            f"{got}, embedding {tuple(model.cond_pembed.shape)}, PitchDNN "
+            f"{pitch}")
+
+
+def _kernel_inputs(model, pitch_model, state, pitch_state, feats, active,
+                   frames):
+    """Check a call against what the kernel takes; returns its inputs in
+    FarganArg's order (each stream's row contiguous), S and F."""
+    _check_models(model, pitch_model)
+    dev = model.device
+    if pitch_model.device != dev:
+        raise ValueError(f"FARGAN is on {dev}, PitchDNN on "
+                         f"{pitch_model.device}")
+    S = feats.shape[0]
+    F = feats.shape[1] if frames is None else frames
+    want = {"feats": (S, F, NB_FEATURES) if frames is None
+            else (S, NB_FEATURES),
+            "active": (S,), "pitch_buf": (S, PITCH_MAX_PERIOD),
+            "cond_conv1_mem": (S, 256), "fwc0_mem": (S, 0),
+            "gru1": (S, 128), "gru2": (S, 128), "gru3": (S, 128),
+            "deemph": (S,), "pitch_state": (S, 64)}
+    given = {"feats": feats, "active": active, **state._asdict(),
+             "pitch_state": pitch_state}
+    for name, shape in want.items():
+        t = given[name]
+        if t is None and name == "active":
+            continue
+        if tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the models on {dev}")
+    if F < 0:
+        raise ValueError(f"frames must be >= 0, got {F}")
+    names = ("feats", "active", *_STATE_ARGS, "pitch_state")
+    return [None if given[n] is None else stream_rows(given[n])
+            for n in names], S, F
+
+
+def _run(model, pitch_model, state, pitch_state, feats, active, frames,
+         host: bool):
+    """One call through the kernel, on CUDA tensors, or through the host
+    build of its arithmetic, on CPU tensors (`host`)."""
+    inputs, S, F = _kernel_inputs(model, pitch_model, state, pitch_state,
+                                  feats, active, frames)
+    dev = feats.device
+    if host != (dev.type == "cpu"):
+        raise ValueError(f"the {'host build' if host else 'kernel'} does "
+                         f"not take tensors on {dev}")
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in ((S, F * FARGAN_FRAME_SIZE), (S, F),
+                          (S, PITCH_MAX_PERIOD), (S, 256), (S, 128),
+                          (S, 128), (S, 128), (S,), (S, 64))]
+    new_state = FarganState(outs[2], outs[3], state.fwc0_mem, *outs[4:8])
+    if S == 0:
+        return outs[0], outs[1], new_state, outs[8]
+    fp = pack_layers(model, [*(getattr(model, n) for n in LAYERS),
+                             model.cond_pembed])
+    pp = pack_layers(pitch_model, [getattr(pitch_model, n)
+                                   for n in PITCH_LAYERS])
+    ptrs = (ctypes.c_void_p * (len(inputs) + len(outs)))(
+        *(0 if t is None else t.data_ptr() for t in inputs),
+        *(t.data_ptr() for t in outs))
+    strides = (ctypes.c_int64 * len(inputs))(
+        *(0 if t is None else t.stride(0) for t in inputs))
+    args = (fp.weights.data_ptr(), fp.table.ctypes.data,
+            pp.weights.data_ptr(), pp.table.ctypes.data, ptrs, strides, S,
+            F, int(frames is not None))
+    if host:
+        symbol = "fargan_conceal_host"
+        rc = _entry(_build.load_header_host("fargan"), symbol)(*args)
+    else:
+        symbol = "mousiki_fargan_conceal"
+        fn = _entry(_build.load("fargan"), symbol)
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: "
+                           f"{'' if host else 'cuda error '}{rc}")
+    return outs[0], outs[1], new_state, outs[8]
+
+
+def _entry(lib, symbol: str):
+    fn = getattr(lib, symbol)
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def conceal_frames(model: FarganModel, pitch_model, state: FarganState,
+                   pitch_state, feats, active=None, frames=None):
+    """F frames of neural concealment for S streams: each frame's PitchDNN
+    period (deep_plc.compute_pitchdnn) drives one synthesize_frame.
+
+    feats (S, F, 20), a frame's features each; or, with `frames` = F,
+    feats (S, 20): PitchDNN runs once on them, and its period and these
+    features drive all F frames (DeepPlcState.conceal). active (S,)
+    float32 or None scales the PCM. Returns (pcm (S, F * 160), float
+    periods (S, F), new FarganState, new PitchDNN state (S, 64)).
+
+    CPU tensors take `conceal_frames_reference`; CUDA tensors launch
+    fargan_conceal_kernel (csrc/fargan.cu) once, and raise on a shape,
+    dtype, device or layer width the kernel does not take."""
+    dev = feats.device
+    if dev.type == "cpu":
+        return conceal_frames_reference(model, pitch_model, state,
+                                        pitch_state, feats, active, frames)
+    if dev.type != "cuda":
+        raise ValueError(f"the concealment runs on cpu or cuda, not {dev}")
+    out = _run(model, pitch_model, state, pitch_state, feats, active,
+               frames, host=False)
+    if feats.shape[0]:
+        global conceal_frames_launches
+        conceal_frames_launches += 1
+    return out
+
+
+def conceal_frames_host(model: FarganModel, pitch_model, state: FarganState,
+                        pitch_state, feats, active=None, frames=None):
+    """`conceal_frames` on CPU tensors through the host build of the
+    kernel's arithmetic (csrc/fargan.h), the streams one after another."""
+    return _run(model, pitch_model, state, pitch_state, feats, active,
+                frames, host=True)
+
+
 def random_model(gen: torch.Generator, cond_dim=256, gru_dim=128,
                  embed_dim=12, n_periods=224, *, device) -> FarganModel:
     """Synthetic weights for graph/shape testing, drawn from `gen` (seeded
@@ -193,13 +407,21 @@ def random_model(gen: torch.Generator, cond_dim=256, gru_dim=128,
     weights, zero biases, N(0, 1) * 0.1 period embedding. The values are
     torch's, not jax.random's: to compare with the JAX package, carry its
     weights across (convert.fargan_from_numpy)."""
+    pembed = (torch.randn((n_periods, embed_dim), generator=gen) * 0.1).numpy()
+    dims = layer_dims(cond_dim, gru_dim, embed_dim)
+    layers = {name: random_linear(gen, *dims[name], 0.08, device=device)
+              for name in LAYERS}
+    return FarganModel(pembed, layers, device=device)
+
+
+def layer_dims(cond_dim=256, gru_dim=128, embed_dim=12) -> dict:
+    """Each layer's (inputs, outputs) at these widths."""
     sub = FARGAN_SUBFRAME_SIZE
     fwc0_in = cond_dim + (sub + 4) + sub
     g1_in_dim = cond_dim + sub + sub
     g2_in_dim = gru_dim + sub + sub
     skip_in = gru_dim * 3 + cond_dim + sub + sub
-    pembed = (torch.randn((n_periods, embed_dim), generator=gen) * 0.1).numpy()
-    dims = dict(
+    return dict(
         cond_fdense1=(NB_FEATURES + embed_dim, cond_dim),
         cond_fconv1=(cond_dim * 2, cond_dim),
         cond_fdense2=(cond_dim, cond_dim),
@@ -219,9 +441,6 @@ def random_model(gen: torch.Generator, cond_dim=256, gru_dim=128,
         skip_glu=(gru_dim, gru_dim),
         sig_dense_out=(gru_dim, sub),
         gain_dense_out=(cond_dim, 4))
-    layers = {name: random_linear(gen, *dims[name], 0.08, device=device)
-              for name in LAYERS}
-    return FarganModel(pembed, layers, device=device)
 
 
 def from_blob(arrays: dict, cond_dim: int = 256, gru_dim: int = 128,

@@ -12,6 +12,8 @@ device.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -90,6 +92,69 @@ def gru(input_w: Linear, recurrent_w: Linear, state, x):
 
 def glu(layer: Linear, x):
     return x * torch.sigmoid(linear(layer, x))
+
+
+def stream_rows(t: torch.Tensor) -> torch.Tensor:
+    """t where each stream's part (all axes but the first) is one
+    contiguous run, as a hand kernel reads it; else a contiguous copy."""
+    want = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size > 1 and stride != want:
+            return t.contiguous()
+        want *= size
+    return t
+
+
+class PackedLayers(NamedTuple):
+    """A model's layers in one float32 buffer for a hand kernel
+    (csrc/nnet.h's NnLayer): each Linear's weight transposed (in, out)
+    row-major, its bias and its diag, each run 16-byte aligned; a table
+    as a raw (rows, cols) array is stored row-major as it is."""
+    weights: torch.Tensor      # (n,) float32 on the model's device
+    table: np.ndarray          # (layers, 5) int32: weight, bias and diag
+                               # offsets in floats (-1: none), n_in, n_out
+
+
+def pack_layers(module: nn.Module, layers) -> PackedLayers:
+    """`layers` (Linear, or a 2-D tensor for a lookup table, in the
+    kernel's order) packed into one buffer on their device, built once and
+    cached on `module`. A table's row is (its offset, -1, -1, columns,
+    rows). Raises where a diag is not the (3 * in) shortcut of a layer of
+    3 * in outputs, as models/nnet.linear needs."""
+    cached = getattr(module, "_kernel_layers", None)
+    if cached is not None:
+        return cached
+    runs, rows, at = [], [], 0
+
+    def put(t) -> int:
+        nonlocal at
+        flat = t.detach().reshape(-1).to(torch.float32)
+        start = at
+        runs.append(flat)
+        pad = -flat.numel() % 4
+        if pad:
+            runs.append(flat.new_zeros(pad))
+        at += flat.numel() + pad
+        return start
+
+    for layer in layers:
+        if isinstance(layer, torch.Tensor):
+            n_rows, n_cols = layer.shape
+            rows.append((put(layer.contiguous()), -1, -1, n_cols, n_rows))
+            continue
+        n_out, n_in = layer.weight.shape
+        if layer.diag is not None and (layer.diag.numel() != 3 * n_in
+                                       or n_out != 3 * n_in):
+            raise ValueError(f"a diag of {layer.diag.numel()} on a layer "
+                             f"{n_in} -> {n_out}: not a GRU shortcut")
+        w = put(layer.weight.t().contiguous())
+        b = -1 if layer.bias is None else put(layer.bias)
+        d = -1 if layer.diag is None else put(layer.diag)
+        rows.append((w, b, d, n_in, n_out))
+    packed = PackedLayers(torch.cat(runs).contiguous(),
+                          np.asarray(rows, np.int32).reshape(-1, 5))
+    module._kernel_layers = packed
+    return packed
 
 
 def conv1d_step(layer: Linear, mem, x, act: int = ACTIVATION_LINEAR):

@@ -10,11 +10,12 @@ loaded with ctypes:
     (the CELT symbol decoder), `silk_host` (the SILK decoder) and
     `opus_host` (the TOC-routed mixed stage, which links the other two
     sources in and so carries its own copy of their globals);
-  * `plc_rows.h`, `silk_nsq.h` and `silk_synthesis.h`, the arithmetic of
-    the concealment's row kernel, of the quantizer kernels and of the SILK
-    synthesis kernel, each compiled by `g++` alone with its array entry
-    points for the CPU tests (`load_header_host`), without contracting a
-    multiply and an add.
+  * `plc_rows.h`, `silk_nsq.h`, `silk_synthesis.h`, `fargan.h` and
+    `rdovae.h`, the arithmetic of the concealment's row kernel, of the
+    quantizer kernels, of the SILK synthesis kernel and of the neural
+    recovery's two kernels (the last two on the layers of `nnet.h`), each
+    compiled by `g++` alone with its array entry points for the CPU tests
+    (`load_header_host`), without contracting a multiply and an add.
 
 Nothing is compiled when a module is imported: the CPU tests import
 every module on a machine without `nvcc`. A library is compiled to a
@@ -52,12 +53,16 @@ HOST_LIBS = {
 
 # kernel source -> the headers of csrc/ it includes
 KERNEL_HEADERS = {"plc_rows": ("plc_rows.h",), "silk_nsq": ("silk_nsq.h",),
-                  "silk_synthesis": ("silk_synthesis.h",)}
+                  "silk_synthesis": ("silk_synthesis.h",),
+                  "fargan": ("fargan.h", "nnet.h"),
+                  "rdovae": ("rdovae.h", "nnet.h")}
 # a kernel's arithmetic built for the host, rounded as the device rounds
 # it: header -> the macro that adds its entry points
 HEADER_HOST_APIS = {"plc_rows": "PLC_ROWS_HOST_API",
                     "silk_nsq": "SILK_NSQ_HOST_API",
-                    "silk_synthesis": "SILK_SYNTHESIS_HOST_API"}
+                    "silk_synthesis": "SILK_SYNTHESIS_HOST_API",
+                    "fargan": "FARGAN_HOST_API",
+                    "rdovae": "RDOVAE_HOST_API"}
 HEADER_HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off", "-x",
                      "c++")
 
@@ -170,7 +175,9 @@ def build_header_host(name: str) -> str:
     return _compile(["g++", *HEADER_HOST_FLAGS,
                      f"-D{HEADER_HOST_APIS[name]}"],
                     [os.path.join(CSRC, f"{name}.h")],
-                    os.path.join(BUILD, f"lib{name}_host.so"))
+                    os.path.join(BUILD, f"lib{name}_host.so"),
+                    tuple(os.path.join(CSRC, h)
+                          for h in KERNEL_HEADERS.get(name, ())))
 
 
 def build_plc_rows_host() -> str:

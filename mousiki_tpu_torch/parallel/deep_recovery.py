@@ -2,16 +2,18 @@
 mousiki_tpu/parallel/deep_recovery.py.
 
 The neural stack (RDOVAE decoder + PitchDNN + FARGAN) runs S streams as
-batched device work:
+batched device work, each of the reference's two compiled scans one
+launch of a hand kernel on the card (its plain version, the eager loop,
+on the CPU):
 
-  * RDOVAE latent decode: one Python loop over the (padded) qframes, at
-    most 26, each step the batched `decode_qframe`, with a per-step
-    active mask (torch.where on every state tensor) freezing the streams
-    that have run out of latents. The latents, initial states and masks
-    go to the device in one copy and the features come back in one read.
-  * Concealment synthesis: per 10 ms frame, batched PitchDNN period
-    estimation + the batched FARGAN frame synthesis; the PCM stays on the
-    device.
+  * RDOVAE latent decode: `models/dred.decode_qframes` over the (padded)
+    qframes, at most 26, with a per-qframe active mask freezing the
+    streams that have run out of latents (csrc/rdovae.cu). The latents,
+    initial states and masks go to the device in one copy and the
+    features come back in one read.
+  * Concealment synthesis: `models/fargan.conceal_frames`, per 10 ms
+    frame the PitchDNN period and the FARGAN frame synthesis
+    (csrc/fargan.cu); the PCM stays on the device.
 
 Host work is only the per-stream entropy parse (dred.opus_dred_parse) and
 the dequantization, the same serial / byte-granular split as the codec
@@ -26,39 +28,13 @@ from torch.profiler import record_function
 
 from .. import _device
 from ..models import dred as M
-from ..models.deep_plc import PITCH_GRU, compute_pitchdnn, random_pitchdnn
-from ..models.dred import (DRED_LATENT_DIM, DRED_NUM_FEATURES,
-                           DRED_STATE_DIM, dequantize, q_level,
-                           synthetic_stats)
+from ..models.deep_plc import PITCH_GRU, random_pitchdnn
+from ..models.dred import DRED_NUM_FEATURES, synthetic_stats
+from ..models.fargan import conceal_frames
 from ..models.fargan import init_state as fargan_init
 from ..models.fargan import random_model as fargan_random
-from ..models.fargan import synthesize_frame
 
 _PAD = 24                  # padded latent / state width
-
-
-def _where(mask, new, old):
-    """The state tree `new` where mask (S,) holds, else `old` (every state
-    tensor is (S, n))."""
-    if isinstance(new, torch.Tensor):
-        return torch.where(mask[:, None], new, old)
-    items = [_where(mask, n, o) for n, o in zip(new, old)]
-    return type(new)(*items) if hasattr(new, "_fields") else tuple(items)
-
-
-def _rdovae_decode_batch(model, lat, st24, active):
-    """lat (S, Q, 24) padded latents (newest first), st24 (S, 24), active
-    (S, Q) bool -> features (S, Q, 4, 20) per qframe (newest-first rows,
-    each 4 reversed 10 ms frames like dred.rs rdovae_decode_all)."""
-    state = M.dec_init_state(model, st24)
-    outs = []
-    for q in range(lat.shape[1]):
-        with record_function("rdovae.qframe"):
-            out, new_state = M.decode_qframe(model, state, lat[:, q])
-            state = _where(active[:, q], new_state, state)
-        outs.append(out)
-    return torch.stack(outs, dim=1).view(lat.shape[0], lat.shape[1], 4,
-                                         DRED_NUM_FEATURES)
 
 
 class BatchedDeepRecovery:
@@ -87,35 +63,16 @@ class BatchedDeepRecovery:
         chronological and right-aligned, n10 (S,) valid counts), numpy."""
         S = self.S
         assert len(dreds) == S
-        qmax = max((d.nb_latents for d in dreds if d is not None),
-                   default=0)
+        packed, n10 = M.pack_latents(dreds, self.stats)
+        qmax = (packed.shape[1] - _PAD) // (_PAD + 1)
         if qmax == 0:
-            return np.zeros((S, 0, DRED_NUM_FEATURES), np.float32), \
-                np.zeros(S, np.int32)
-        # one host buffer, one copy: latents | initial state | active mask
-        packed = np.zeros((S, qmax * _PAD + _PAD + qmax), np.float32)
-        lat = packed[:, :qmax * _PAD].reshape(S, qmax, _PAD)
-        st24 = packed[:, qmax * _PAD: (qmax + 1) * _PAD]
-        act = packed[:, (qmax + 1) * _PAD:]
-        n10 = np.zeros(S, np.int32)
-        for s, d in enumerate(dreds):
-            if d is None:
-                continue
-            st24[s, :DRED_STATE_DIM] = dequantize(
-                d.state_q, self.stats.state_scale[d.q0])[:DRED_STATE_DIM]
-            for i, lq in enumerate(d.latents_q):
-                lvl = q_level(i, d.q0, d.dq)
-                lat[s, i, :DRED_LATENT_DIM] = dequantize(
-                    lq, self.stats.latent_scale[lvl])[:DRED_LATENT_DIM]
-                act[s, i] = 1.0
-            n10[s] = 4 * d.nb_latents
-        dev_packed = torch.from_numpy(packed).to(self.device)
-        out = _rdovae_decode_batch(
-            self.dec_model,
-            dev_packed[:, :qmax * _PAD].view(S, qmax, _PAD),
-            dev_packed[:, qmax * _PAD: (qmax + 1) * _PAD],
-            dev_packed[:, (qmax + 1) * _PAD:] > 0.5)
-        out = out.cpu().numpy()                     # (S, qmax, 4, 20)
+            return np.zeros((S, 0, DRED_NUM_FEATURES), np.float32), n10
+        # features (S, qmax, 4, 20) a qframe (newest-first rows, each 4
+        # reversed 10 ms frames like dred.rs rdovae_decode_all)
+        with record_function("rdovae.decode_qframes"):
+            out = M.decode_qframes(self.dec_model,
+                                   torch.from_numpy(packed).to(self.device))
+        out = out.cpu().numpy()
         # qframe i (newest first) covers chronological frames
         # [n10-4(i+1), n10-4i); rows within a qframe are newest-first.
         feats = np.zeros((S, 4 * qmax, DRED_NUM_FEATURES), np.float32)
@@ -133,20 +90,12 @@ class BatchedDeepRecovery:
         that drove each frame are kept in `last_periods`."""
         feats = torch.as_tensor(feats, dtype=torch.float32,
                                 device=self.device)
-        S, n_frames = feats.shape[:2]
-        fst, pst = self.fargan_state, self.pitch_state
-        pcm, periods = [], []
-        for k in range(n_frames):
-            f = feats[:, k]
-            period, pst = compute_pitchdnn(self.pitch_model, pst, f)
-            out, fst = synthesize_frame(self.fargan_model, fst, f,
-                                        period.to(torch.int32))
-            pcm.append(out)
-            periods.append(period)
-        self.fargan_state, self.pitch_state = fst, pst
-        self.last_periods = torch.stack(periods, dim=1)
-        pcm = torch.cat(pcm, dim=1)
         if active is not None:
-            pcm = pcm * torch.as_tensor(active, dtype=torch.float32,
-                                        device=self.device)[:, None]
+            active = torch.as_tensor(active, dtype=torch.float32,
+                                     device=self.device)
+        with record_function("fargan.conceal_frames"):
+            (pcm, self.last_periods, self.fargan_state,
+             self.pitch_state) = conceal_frames(
+                self.fargan_model, self.pitch_model, self.fargan_state,
+                self.pitch_state, feats, active)
         return pcm

@@ -4,7 +4,7 @@ kernel alone, on one GPU, for one or more checkouts of this repository,
 in turns.
 
     python3 tools/torch_step_ab.py --trees DIR_A,DIR_B --order 0,1,1,0 \\
-        [--target steps|nsq|silk_syn] [--probe 0,1] [--out FILE]
+        [--target steps|nsq|silk_syn|neural] [--probe 0,1] [--out FILE]
 
 Each entry of --order runs one child process in that checkout (its
 mousiki_tpu_torch and golden_streams.py), so that two versions of the
@@ -49,6 +49,12 @@ SilkStreamPipeline(256, synthesis="device") at 16 and 8 kHz on the golden
 SILK streams (stream s at frame s % 12), the first frame of
 silk_synthesis_cases.py's seeded 12 kHz streams at S = 256, and one
 voiced, interpolated stream alone (S = 1, its chain) at 16, 12 and 8 kHz.
+
+--target neural: a child times the neural recovery's two kernels alone
+by CUDA events (as above) on the calls of phase 3g of chip_smoke.py:
+conceal_frames on bench.py's features at S = 64 and 256 from the initial
+state, the DeepPlcState route (PitchDNN once, two frames) at S = 1, and
+decode_qframes on _seeded_dreds(64) and on its first stream alone.
 
 --probe (nsq and silk_syn; indices into --trees) then builds each of
 those checkouts' kernel source with the clock hooks of this checkout's
@@ -431,6 +437,56 @@ def _syn_child() -> dict:
     return out
 
 
+def _neural_calls(dev) -> dict:
+    """chip_smoke.py phase 3g's calls (see --target neural), each a
+    function of no argument."""
+    import torch
+
+    import chip_smoke
+    from mousiki_tpu_torch import dred
+    from mousiki_tpu_torch.models import deep_plc, fargan
+    from mousiki_tpu_torch.models import dred as rdovae
+
+    def seeded(seed, make):
+        return make(torch.Generator().manual_seed(seed), device=dev)
+
+    fm, pm = seeded(2, fargan.random_model), seeded(3,
+                                                    deep_plc.random_pitchdnn)
+    dm = seeded(1, rdovae.random_dec)
+    out = {}
+    for S in (64, 256):
+        out[f"conceal_S{S}"] = partial(
+            fargan.conceal_frames, fm, pm, fargan.init_state(fm, S),
+            torch.zeros(S, 64, device=dev),
+            torch.as_tensor(chip_smoke._bench_features(S), device=dev))
+    out["deep_plc_S1"] = partial(
+        fargan.conceal_frames, fm, pm, fargan.init_state(fm, 1),
+        torch.zeros(1, 64, device=dev),
+        torch.as_tensor(chip_smoke._bench_features(1)[:, 0], device=dev),
+        frames=2)
+    packed = torch.from_numpy(rdovae.pack_latents(
+        chip_smoke._seeded_dreds(64), dred.synthetic_stats())[0]).to(dev)
+    out["rdovae_S64"] = partial(rdovae.decode_qframes, dm, packed)
+    out["rdovae_S1"] = partial(rdovae.decode_qframes, dm, packed[:1])
+    return out
+
+
+def _neural_child() -> dict:
+    """This checkout's neural kernels alone by CUDA events on
+    _neural_calls, µs a call."""
+    import torch
+
+    sys.path.insert(1, HERE)
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    dev = torch.device("cuda", 0)
+    out = {"tree": os.getcwd(), "device": torch.cuda.get_device_name(dev),
+           "kernel_us": {}}
+    for label, call in _neural_calls(dev).items():
+        out["kernel_us"][label] = _event_us(call)
+    return out
+
+
 def _probe_lib(source: str, header: str, probe: str, hooks):
     """This checkout's csrc/<source>.cu built with the clock hooks of
     tools/<probe>.cu (the header given PARENT_HOOKS-style `hooks` where it
@@ -510,10 +566,12 @@ def main() -> int:
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--child-probe", action="store_true",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--target", choices=("steps", "nsq", "silk_syn"),
+    ap.add_argument("--target", choices=("steps", "nsq", "silk_syn",
+                                         "neural"),
                     default="steps",
-                    help="the decode steps, one quantizer dispatch or the "
-                    "SILK synthesis kernel alone")
+                    help="the decode steps, one quantizer dispatch, the "
+                    "SILK synthesis kernel alone or the neural kernels "
+                    "alone")
     ap.add_argument("--trees", help="comma-separated checkouts")
     ap.add_argument("--order", help="comma-separated indices into --trees")
     ap.add_argument("--probe", default="",
@@ -528,7 +586,8 @@ def main() -> int:
                      else _probe_child)
         else:
             child = {"steps": _steps_child, "nsq": _nsq_child,
-                     "silk_syn": _syn_child}[args.target]
+                     "silk_syn": _syn_child,
+                     "neural": _neural_child}[args.target]
         print(json.dumps(child()), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
@@ -540,7 +599,7 @@ def main() -> int:
     print(card.strip(), flush=True)
     lines = []
     probes = [int(i) for i in args.probe.split(",") if i]
-    if probes and args.target == "steps":
+    if probes and args.target in ("steps", "neural"):
         ap.error("--probe takes --target nsq or silk_syn")
     for i, mode in [(i, "--child") for i in order] + [
             (i, "--child-probe") for i in probes]:
